@@ -1,0 +1,551 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py                 # the whole run, one card
+    python3 chip_smoke.py --only-kernels  # build and check the kernels, stop
+
+Phases, each printed on its own lines; any failure exits non-zero:
+
+ 1. environment: card name and power limit (nvidia-smi), torch and CUDA
+    versions; float32 matmuls must not run in TF32.
+ 2. build: the kernels compile from the repository's sources at first use.
+ 3. kernels: each kernel against its plain PyTorch version on the card, at
+    the main path's shapes, with the tests' tolerances (flat_l2 also against
+    float64, within a limit that rejects bf16 or TF32 inputs); times of the
+    kernel, the plain version and (where one exists) a single PyTorch call
+    computing the same function.
+ 4. main path: a DiskANNIndex at the paper configuration's widths
+    (768-D, M=96, R=32, L=100, W=4, k=10) built through ``insert`` on
+    synthetic clustered low-rank data made from ``--seed``; 8 batches of 128
+    queries through ``search``; one batch through each filtered plan
+    (beta, qflat, post, brute); recall@10 against ``recall.ground_truth``, at
+    the defaults and with the same beam reranked at k' = 10k.
+ 5. the card against the CPU: the built state (``snapshot``) restored into a
+    ``device="cpu"`` index, one batch searched there with the plain versions.
+ 6. every kernel's launch counter (dense and gathered forms apart) rose
+    during phase 4.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+BUILD_BUDGET_S = 400.0  # about a third of the run's 1200 s limit
+N_STOPS = (30_000, 50_000, 100_000)
+# synthetic data (make_data)
+N_CLUSTERS, LATENT, CENTER_SCALE, SPREAD, NOISE = 1000, 32, 2.0, 0.6, 0.05
+# recall@10 floors. At the reference's defaults (k' = 5k = 50) the PQ codes
+# cannot order the members of a tight cluster, and the true neighbours can
+# fall past the rerank window though the beam holds them (PERF.md): the
+# defaults' floor sits below the 0.80 the port aims for, to catch a graph or
+# kernel fault and not that loss; the same beam reranked at k' = 10k must
+# find nearly all of them.
+RECALL_FLOOR_DEFAULTS = 0.75
+RECALL_FLOOR_WIDE_RERANK = 0.95
+WIDE_RERANK_MULTIPLIER = 10.0
+
+
+def fail(msg: str) -> int:
+    print(f"FAIL: {msg}", flush=True)
+    return 1
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def time_ms(torch, fn, iters: int) -> float:
+    """Mean device time of fn over iters launches (CUDA events, warmed)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def make_data(torch, n: int, dim: int, seed: int, device):
+    """Clustered points on a low-rank latent, projected to dim, plus small
+    noise: 1000 clusters on a rank-32 latent, centres 2.0 N(0, 1) apart,
+    points 0.6 N(0, 1) around their centre. Real embeddings have a low
+    intrinsic dimension and topical clusters; isotropic noise in 768-D has
+    no meaningful neighbours. How close this comes to real embeddings is not
+    known until such a file is in the repository.
+    Returns (n points, a function drawing more from the same distribution)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    proj = torch.randn(LATENT, dim, generator=g, device=device) / math.sqrt(LATENT)
+    centers = CENTER_SCALE * torch.randn(N_CLUSTERS, LATENT, generator=g, device=device)
+
+    def draw(m: int):
+        assign = torch.randint(N_CLUSTERS, (m,), generator=g, device=device)
+        z = centers[assign] + SPREAD * torch.randn(m, LATENT, generator=g, device=device)
+        return z @ proj + NOISE * torch.randn(m, dim, generator=g, device=device)
+
+    return draw(n), draw
+
+
+def round_tf32(torch, t):
+    """t (f32) with its mantissa rounded to TF32's 10 bits, kept as f32."""
+    i = t.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def kernel_checks(torch, K, dev, N: int) -> dict:
+    """One entry per kernel (the keys of K.launch_counts())."""
+    from repro_torch.kernels.flat_l2.ref import flat_l2_gathered_ref, flat_l2_ref
+    from repro_torch.kernels.pq_adc.ref import pq_adc_ref
+    from repro_torch.kernels.pq_encode.ref import pq_encode_ref
+    from repro_torch.kernels.topk_select.ref import topk_select_ref
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, V, M, Kc, D, dsub = 128, 2, 96, 256, 768, 8
+    C = 4 * 41  # W * R_slack candidates per beam round
+    out = {}
+
+    # -- pq_adc: gathered/versioned (beam round) and dense (Q-Flat) --------
+    luts = torch.randn(B, V, M, Kc, generator=g, device=dev)
+    codes = torch.randint(0, Kc, (N, M), generator=g, device=dev, dtype=torch.uint8)
+    versions = torch.randint(0, V, (N,), generator=g, device=dev, dtype=torch.uint8)
+    ids = torch.randint(0, N, (B, C), generator=g, device=dev, dtype=torch.int32)
+    ids[:, ::7] = -1  # padding lanes, masked by the caller
+    got = K.pq_adc(luts, codes, versions, ids)
+    want = pq_adc_ref(luts, codes, versions, ids)
+    ok = ids >= 0
+    err_g = float((got - want).abs()[ok].max())
+    check(torch.allclose(got[ok], want[ok], rtol=1e-5, atol=1e-5), f"pq_adc gathered err {err_g}")
+    got_d = K.pq_adc(luts, codes, versions)
+    want_d = pq_adc_ref(luts, codes, versions)
+    err_d = float((got_d - want_d).abs().max())
+    check(torch.allclose(got_d, want_d, rtol=1e-5, atol=1e-5), f"pq_adc dense err {err_d}")
+    valid = ids[ok].long()
+    vv = versions[valid].long()
+    bb = torch.arange(B, device=dev)[:, None].expand(B, C)[ok]
+    lut_idx = (((bb * V + vv)[:, None] * M + torch.arange(M, device=dev)) * Kc
+               + codes[valid].long())
+    touched = int(torch.unique(lut_idx).numel())
+    n_ok = int(ok.sum())
+    gb, gby = bound(B * C * 4 + n_ok * (M + 1) + touched * 4 + B * C * 4, n_ok * M)
+    db, dby = bound(N * (M + 1) + B * V * M * Kc * 4 + B * N * 4, B * N * M)
+    out["pq_adc.gathered"] = dict(
+        max_abs_err=err_g, bound_ms=gb, bound_by=gby, library_ms=None,
+        ms=time_ms(torch, lambda: K.pq_adc(luts, codes, versions, ids), 200),
+        plain_ms=time_ms(torch, lambda: pq_adc_ref(luts, codes, versions, ids), 50),
+        shape=f"B={B} C={C} V={V} M={M} K={Kc} N={N}")
+    out["pq_adc.dense"] = dict(
+        max_abs_err=err_d, bound_ms=db, bound_by=dby, library_ms=None,
+        ms=time_ms(torch, lambda: K.pq_adc(luts, codes, versions), 10),
+        plain_ms=time_ms(torch, lambda: pq_adc_ref(luts, codes, versions), 3),
+        shape=f"B={B} N={N} V={V} M={M} K={Kc}")
+    del luts, codes, versions, got_d, want_d
+
+    # -- topk_select at every shape of the path, tie-heavy inputs ----------
+    forms = []
+    shapes = [("merge", B, 100 + C, 100, False), ("frontier", B, 100, 4, False),
+              ("rerank", B, 50, 10, True), ("prune_cut", 100, 316, 32, False),
+              ("brute", B, N, 10, True)]
+    for name, rows, n, L, mark in shapes:
+        d = torch.randint(0, 64, (rows, n), generator=g, device=dev).float()
+        d[torch.rand(rows, n, generator=g, device=dev) < 0.3] = float("inf")
+        v1, i1 = K.topk_select(d, L, mark_nonfinite=mark)
+        v2, i2 = topk_select_ref(d, L, mark_nonfinite=mark)
+        check(torch.equal(i1, i2), f"topk_select {name}: indices differ")
+        check(torch.equal(v1, v2), f"topk_select {name}: values differ")
+        b_ms, b_by = bound(rows * n * 4 + rows * L * 8, rows * n)
+        it = 200 if n < 10_000 else 20
+        forms.append(dict(
+            form=name, shape=f"B={rows} N={n} L={L}",
+            ms=time_ms(torch, lambda: K.topk_select(d, L, mark), it),
+            plain_ms=time_ms(torch, lambda: topk_select_ref(d, L, mark), it // 4),
+            library_ms=time_ms(torch, lambda: torch.topk(d, L, dim=1, largest=False), it),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0))  # values equal, checked above
+    # rows up to RANK_MAX_N take the ranking kernel (the beam merge is the
+    # main shape; the other short rows are listed beside it), longer rows
+    # the iterating one (brute force, Q-Flat, ground truth)
+    out["topk_select.rank"] = dict(forms[0], shape="merge " + forms[0]["shape"], forms=forms[1:4])
+    out["topk_select.iter"] = dict(forms[4], shape="brute " + forms[4]["shape"])
+    for e in out["topk_select.rank"], out["topk_select.iter"]:
+        del e["form"]
+
+    # -- flat_l2: gathered difference form (rerank) and dense --------------
+    x = torch.randn(N, D, generator=g, device=dev)
+    q = torch.randn(B, D, generator=g, device=dev)
+    rid = torch.randint(0, N, (B, 50), generator=g, device=dev, dtype=torch.int32)
+    q64, x64 = q.double(), x.double()
+    # the f32 kernels against float64: a few roundings of the largest sum,
+    # grown as sqrt(D) over the D-term sums
+    scale = float((q64 * q64).sum(1).max() + (x64 * x64).sum(1).max())
+    f32_limit = 2 * math.sqrt(D) * torch.finfo(torch.float32).eps * scale
+    got = K.flat_l2_gathered(q, x, rid)
+    check(torch.allclose(got, flat_l2_gathered_ref(q, x, rid), rtol=1e-5, atol=1e-5),
+          "flat_l2 gathered against its plain version")
+    err_r = float((got.double() - ((q64[:, None] - x64[rid.long()]) ** 2).sum(-1)).abs().max())
+    check(err_r <= f32_limit, f"flat_l2 gathered err {err_r} > f32 limit {f32_limit}")
+    got_d = K.flat_l2(q, x)
+    check(torch.allclose(got_d, flat_l2_ref(q, x), rtol=2e-3, atol=2e-3),
+          "flat_l2 dense against its plain version")
+    want64 = ((q64 * q64).sum(1)[:, None] + (x64 * x64).sum(1)[None]
+              - 2 * (q64 @ x64.T)).clamp_min(0)
+    del x64
+    err_fd = float((got_d.double() - want64).abs().max())
+    # the limit must tell f32 from reduced precision: the same product on
+    # inputs rounded to bf16 (the kernel's bf16 mode) or to TF32's 10-bit
+    # mantissa (what a TF32 tensor-core product rounds them to) exceeds it
+    err_bf16 = float((K.flat_l2(q.bfloat16(), x.bfloat16()).double() - want64).abs().max())
+    err_tf32 = float((K.flat_l2(round_tf32(torch, q), round_tf32(torch, x)).double()
+                      - want64).abs().max())
+    print(f"flat_l2 dense against float64: f32 kernel {err_fd:.3e}, limit {f32_limit:.3e}, "
+          f"bf16 inputs {err_bf16:.3e}, TF32 inputs {err_tf32:.3e}", flush=True)
+    check(err_fd <= f32_limit, f"flat_l2 dense err {err_fd} > f32 limit {f32_limit}")
+    check(min(err_bf16, err_tf32) > f32_limit, "the f32 limit does not reject bf16 or TF32")
+    del want64
+    qb, xb = q[:16, :64].bfloat16().contiguous(), x[:64, :64].bfloat16().contiguous()
+    check(torch.allclose(K.flat_l2(qb, xb), flat_l2_ref(qb, xb), rtol=5e-2, atol=5e-2),
+          "flat_l2 bf16")
+    rows_read = int(torch.unique(rid).numel())
+    rb, rby = bound(B * D * 4 + rows_read * D * 4 + B * 50 * 8, 3 * B * 50 * D)
+    fb, fby = bound((B + N) * D * 4 + B * N * 4, 2 * B * N * D)
+    precision = dict(f32_limit=f32_limit, bf16_inputs_err=err_bf16, tf32_inputs_err=err_tf32)
+    out["flat_l2.gathered"] = dict(
+        max_abs_err=err_r, f32_limit=f32_limit, bound_ms=rb, bound_by=rby, library_ms=None,
+        ms=time_ms(torch, lambda: K.flat_l2_gathered(q, x, rid), 200),
+        plain_ms=time_ms(torch, lambda: flat_l2_gathered_ref(q, x, rid), 50),
+        shape=f"B={B} C=50 D={D}")
+    out["flat_l2.dense"] = dict(
+        max_abs_err=err_fd, **precision, bound_ms=fb, bound_by=fby,
+        ms=time_ms(torch, lambda: K.flat_l2(q, x), 5),
+        plain_ms=time_ms(torch, lambda: flat_l2_ref(q, x), 5),
+        # the Euclidean distance itself (its square root), one call
+        library_ms=time_ms(torch, lambda: torch.cdist(q, x), 5), library="torch.cdist",
+        shape=f"B={B} N={N} D={D}")
+    del x, got_d
+
+    # -- pq_encode: an insert mini-batch and the k-means sample ------------
+    cb = torch.randn(M, Kc, dsub, generator=g, device=dev)
+    worst, n_bad, n_all = 0.0, 0, 0
+    for n in (100, 25_000):
+        xe = torch.randn(n, D, generator=g, device=dev)
+        c1 = K.pq_encode(xe, cb)
+        c2 = pq_encode_ref(xe, cb)
+        bad = c1 != c2
+        n_bad += int(bad.sum())
+        n_all += bad.numel()
+        if bad.any():
+            nn, mm = bad.nonzero(as_tuple=True)
+            sub = xe.double().reshape(n, M, dsub)[nn, mm]  # (n_bad, dsub)
+            s1 = ((sub - cb.double()[mm, c1[nn, mm].long()]) ** 2).sum(-1)
+            s2 = ((sub - cb.double()[mm, c2[nn, mm].long()]) ** 2).sum(-1)
+            rel = float(((s1 - s2).abs() / s2.abs().clamp_min(1e-12)).max())
+            worst = max(worst, float((s1 - s2).abs().max()))
+            check(rel <= 1e-5, f"pq_encode mismatch not a near-tie (rel {rel})")
+    check(n_bad <= 1e-3 * n_all, f"pq_encode: {n_bad}/{n_all} codes differ")
+    xe = torch.randn(100, D, generator=g, device=dev)
+    eb, eby = bound(100 * D * 4 + M * Kc * dsub * 4 + 100 * M, 100 * M * Kc * 2 * dsub)
+    out["pq_encode"] = dict(
+        max_abs_err=worst, mismatches=n_bad, compared=n_all,
+        ms=time_ms(torch, lambda: K.pq_encode(xe, cb), 200),
+        plain_ms=time_ms(torch, lambda: pq_encode_ref(xe, cb), 50),
+        bound_ms=eb, bound_by=eby, library_ms=None, shape=f"N=100 D={D} M={M} K={Kc}",
+    )
+    check(set(out) == set(K.launch_counts()), "a kernel was not checked")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+
+
+def build_index(torch, data_np, seed: int, n_max: int, dev):
+    from repro_torch.core import DiskANNIndex, GraphConfig
+
+    cfg = GraphConfig(capacity=n_max + 1024, R=32, M=96, L_build=100, L_search=100, beam_width=4)
+    idx = DiskANNIndex(cfg, data_np.shape[1], seed=seed, device=dev)
+    stops = [s for s in N_STOPS if s < n_max] + [n_max]
+    t0 = time.perf_counter()
+    done, last_t, cut = 0, 0.0, None
+    for i, stop in enumerate(stops):
+        idx.insert(list(range(done, stop)), data_np[done:stop])
+        torch.cuda.synchronize()
+        now = time.perf_counter() - t0
+        rate = (stop - done) / max(now - last_t, 1e-9)
+        print(f"build: {stop} docs at {now:.1f} s ({rate:.1f} inserts/s in the last segment, "
+              f"schemas={len(idx.schemas)})", flush=True)
+        done, last_t = stop, now
+        if i + 1 < len(stops):
+            projected = now + (stops[i + 1] - stop) / rate
+            if projected > BUILD_BUDGET_S:
+                cut = (f"N cut to {stop}: building {stops[i + 1]} was projected at "
+                       f"{projected:.0f} s > {BUILD_BUDGET_S:.0f} s budget")
+                break
+    return idx, done, time.perf_counter() - t0, cut
+
+
+def main_path(torch, np, K, dev, args) -> dict:
+    from repro_torch.core import recall as rec
+
+    data, draw = make_data(torch, args.n, 768, args.seed, dev)
+    data_np = data.cpu().numpy()
+    queries = draw(8 * 128).cpu().numpy()
+    del data
+
+    K.reset_launch_counts()
+    idx, n, build_s, cut = build_index(torch, data_np, args.seed, args.n, dev)
+    check(len(idx.schemas) == 2, "requantization did not fire: search would run with V=1")
+    print(f"build: N={n} in {build_s:.1f} s = {n / build_s:.1f} inserts/s"
+          + (f"; {cut}" if cut else ""), flush=True)
+
+    counts_before_search = K.launch_counts()
+    lat, results, stats = [], [], []
+    for i in range(8):
+        qb = queries[i * 128:(i + 1) * 128]
+        t = time.perf_counter()
+        ids, dists, st = idx.search(qb, k=10)
+        lat.append(time.perf_counter() - t)
+        check(ids.shape == (128, 10) and np.isfinite(dists).all(), "search output")
+        check((np.diff(dists, axis=1) >= 0).all(), "search results not sorted")
+        results.append(ids)
+        stats.append(st)
+    per_batch = {k: (v - counts_before_search[k]) / 8 for k, v in K.launch_counts().items()}
+
+    live = idx.pv.live.copy()
+    filt = {}
+    broad = (np.arange(idx.cfg.capacity) % 10) < 3  # ~30 % of documents
+    narrow = (np.arange(idx.cfg.capacity) % 50) == 0  # < 5000 documents: Q-Flat
+    q0 = queries[:128]
+    for mode, mask in (("beta", broad), ("qflat", narrow), ("post", broad), ("brute", broad)):
+        t = time.perf_counter()
+        ids, dists, st = idx.filtered_search(q0, 10, mask, mode=mode)
+        filt[mode] = dict(seconds=time.perf_counter() - t, plan=st.plan, ids=ids, mask=mask)
+        check(ids.shape == (128, 10) and st.plan == mode, f"filtered {mode}")
+        check(bool(mask[ids[ids >= 0]].all()), f"filtered {mode} returned a non-matching doc")
+    counts = K.launch_counts()  # the main path ends here
+
+    # recall against exact ground truth on the card (flat_l2 + topk_select)
+    vec_t = torch.from_numpy(idx.pv.vectors).to(dev)
+    live_t = torch.from_numpy(live).to(dev)
+    gt = np.concatenate([rec.ground_truth(torch.from_numpy(queries[i:i + 128]).to(dev),
+                                          vec_t, live_t, 10) for i in range(0, 1024, 128)])
+    gt_docs = idx.slot_to_doc[gt]
+    q64 = torch.from_numpy(queries[:128]).to(dev).double()
+    d64 = torch.cdist(q64, vec_t.double()).square()
+    d64[:, ~live_t] = float("inf")
+    gt64 = d64.topk(10, dim=1, largest=False).indices.cpu().numpy()
+    gt_agree = rec.recall_at_k(gt[:128], gt64, 10)
+    check(gt_agree >= 0.999, f"ground truth disagrees with float64 ({gt_agree})")
+    found = np.concatenate(results)
+    recall = rec.recall_at_k(found, gt_docs, 10)
+    # the same beam (L = 100) reranked at k' = 10k: what the beam holds
+    wide = np.concatenate([idx.search(queries[i:i + 128], k=10,
+                                      rerank_multiplier=WIDE_RERANK_MULTIPLIER)[0]
+                           for i in range(0, 1024, 128)])
+    recall_wide = rec.recall_at_k(wide, gt_docs, 10)
+    for mode, f in filt.items():
+        fm = torch.from_numpy(f["mask"] & live).to(dev)
+        fgt = idx.slot_to_doc[rec.ground_truth(torch.from_numpy(q0).to(dev), vec_t, fm, 10)]
+        f["recall"] = rec.recall_at_k(f["ids"], fgt, 10)
+    lat_ms = np.asarray(lat) * 1e3
+    out = dict(
+        n=n, build_s=build_s, inserts_per_s=n / build_s, cut=cut,
+        p50_ms=float(np.percentile(lat_ms, 50)), p95_ms=float(np.percentile(lat_ms, 95)),
+        qps=1024 / float(np.sum(lat)), recall_at_10=recall,
+        recall_at_10_wide_rerank=recall_wide,
+        gt_float64_agreement=gt_agree,
+        hops=float(np.mean([s.hops for s in stats])),
+        cmps=float(np.mean([s.cmps for s in stats])),
+        expansions=float(np.mean([s.expansions for s in stats])),
+        launches=counts, launches_per_query_batch=per_batch,
+        filtered={m: dict(seconds=f["seconds"], recall_at_10=f["recall"]) for m, f in filt.items()},
+    )
+    print("main path: " + json.dumps({k: v for k, v in out.items()}), flush=True)
+    check(recall >= RECALL_FLOOR_DEFAULTS, f"recall@10 {recall} < {RECALL_FLOOR_DEFAULTS}")
+    check(recall_wide >= RECALL_FLOOR_WIDE_RERANK,
+          f"recall@10 at k'=10k {recall_wide} < {RECALL_FLOOR_WIDE_RERANK}")
+    return out, idx, results[0], queries[:128], gt_docs[:128], draw
+
+
+OUR_KERNELS = ("adc_gathered_kernel", "adc_dense_smem_kernel", "topk_rank_kernel",
+               "topk_iter_kernel", "flat_dense_kernel", "flat_gathered_kernel", "pq_encode_kernel")
+
+
+def profile(torch, np, idx, queries, draw, out_dir: Path) -> dict:
+    """One query batch and three insert mini-batches, each timed once on the
+    host clock without the profiler and once under torch.profiler: the time
+    the card's kernels take against that unprofiled wall time (the device's
+    busy share; the profiler itself slows the host), and the kernels that
+    take it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    extra = draw(6 * idx.cfg.batch_size).cpu().numpy()
+    first = idx.count
+    half = 3 * idx.cfg.batch_size
+    out_dir.mkdir(parents=True, exist_ok=True)
+    summary = {}
+    for name, runs in (
+        ("search", [lambda: idx.search(queries, k=10)] * 2),
+        ("insert", [lambda: idx.insert(list(range(first, first + half)), extra[:half]),
+                    lambda: idx.insert(list(range(first + half, first + 2 * half)),
+                                       extra[half:])]),
+    ):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        runs[0]()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            runs[1]()
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        (out_dir / f"profile_{name}.txt").write_text(
+            ka.table(sort_by="self_device_time_total", row_limit=40))
+        dev_us = lambda e: (getattr(e, "self_device_time_total", 0)
+                            or getattr(e, "self_cuda_time_total", 0))
+        kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
+        busy = sum(dev_us(e) for e in kernels)
+        ours = sum(dev_us(e) for e in kernels if any(k in e.key for k in OUR_KERNELS))
+        top = sorted(kernels, key=dev_us, reverse=True)[:6]
+        summary[name] = dict(
+            wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+            busy_share=busy / wall_us if busy else "not measured",
+            port_kernels_ms=ours / 1e3, device_launches=sum(e.count for e in kernels),
+            top=[(e.key[:60], dev_us(e) / 1e3, e.count) for e in top])
+        print(f"profile {name}: " + json.dumps(summary[name]), flush=True)
+    return summary
+
+
+def cpu_compare(np, idx, gpu_ids, q, gt_docs) -> dict:
+    from repro_torch.core import DiskANNIndex
+    from repro_torch.core import recall as rec
+
+    cpu = DiskANNIndex(idx.cfg, idx.dim, device="cpu")
+    cpu.restore(idx.snapshot())
+    t = time.perf_counter()
+    ids, dists, _ = cpu.search(q, k=10)
+    secs = time.perf_counter() - t
+    same = float((ids == gpu_ids).mean())
+    r_cpu, r_gpu = rec.recall_at_k(ids, gt_docs, 10), rec.recall_at_k(gpu_ids, gt_docs, 10)
+    out = dict(ids_equal=same, recall_cpu=r_cpu, recall_gpu=r_gpu, cpu_seconds=secs)
+    print("card vs cpu: " + json.dumps(out), flush=True)
+    check(same >= 0.99, f"card and CPU ids agree in only {same:.4f} of slots")
+    check(abs(r_cpu - r_gpu) <= 0.01, "card and CPU recall differ by more than 0.01")
+    return out
+
+
+def run(args) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        return fail(f"no src/repro_torch beside {Path(__file__).name}: run it from the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.kernels import _build
+
+    # 1. environment
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    card = smi[0].strip()
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}",
+          flush=True)
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "float32 matmuls must not use TF32")
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # 2. build
+    _build.library()
+    print(f"build: {'compiled' if _build.BuildInfo.built else 'loaded'} "
+          f"{_build.BuildInfo.path} in {_build.BuildInfo.seconds:.1f} s", flush=True)
+    for line in _build.BuildInfo.log.splitlines():
+        if "registers" in line or "error" in line.lower() or line.startswith("=="):
+            print("  " + line.strip(), flush=True)
+
+    # 3. kernels against their plain versions
+    kern = kernel_checks(torch, K, dev, args.n)
+    for name, k in kern.items():
+        print(f"kernel {name}: ok, {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, "
+              f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}) at {k['shape']}", flush=True)
+    if args.only_kernels:
+        print(json.dumps({"kernels": kern, "card": card}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+    torch.cuda.empty_cache()
+
+    # 4-6. main path, card against CPU, launches
+    path, idx, gpu_ids, q, gt_docs, draw = main_path(torch, np, K, dev, args)
+    versus = cpu_compare(np, idx, gpu_ids, q, gt_docs)
+    counts = path["launches"]
+    missing = [k for k, v in counts.items() if v <= 0]
+    check(not missing, f"kernels not launched on the main path: {missing}")
+
+    sources = {"pq_adc": 49, "topk_select": 61, "flat_l2": 44, "pq_encode": 29}
+    line = {"kernels": [], "card": card}
+    for name, k in kern.items():
+        kernel = name.split(".")[0]
+        entry = dict(name=name, route="cuda",
+                     source=f"src/repro_torch/kernels/{kernel}/kernel.cu",
+                     replaces=f"src/repro/kernels/{kernel}/kernel.py:{sources[kernel]}",
+                     launches=counts[name],
+                     launches_per_query_batch=path["launches_per_query_batch"][name])
+        entry.update(k)
+        line["kernels"].append(entry)
+    prof = profile(torch, np, idx, q, draw, Path(args.out).parent) if args.profile else None
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(dict(kernels=line["kernels"], main_path=path,
+                                                  card_vs_cpu=versus, profile=prof, card=card),
+                                             indent=1))
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n", type=int, default=100_000, help="documents to build (target)")
+    ap.add_argument("--only-kernels", action="store_true")
+    ap.add_argument("--out", default="", help="also write the results as JSON here")
+    ap.add_argument("--profile", action="store_true",
+                    help="after the checks, profile one query batch and three insert "
+                         "mini-batches (tables beside --out)")
+    return run(ap.parse_args())
+
+
+if __name__ == "__main__":
+    sys.exit(main())

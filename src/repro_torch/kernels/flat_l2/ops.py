@@ -1,0 +1,66 @@
+"""Wrappers of the flat_l2 kernels: plain versions for CPU tensors, CUDA kernels otherwise."""
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from .ref import flat_l2_gathered_ref, flat_l2_ref
+
+
+def _metric_ip(metric: str) -> int:
+    if metric == "l2":
+        return 0
+    if metric in ("ip", "cosine"):
+        return 1
+    raise ValueError(f"unknown metric {metric!r}")
+
+
+def flat_l2(q: torch.Tensor, x: torch.Tensor, metric: str = "l2") -> torch.Tensor:
+    """Dense distances (B, N) f32 from q (B, D) and x (N, D), both f32 or both
+    bf16: l2 = |q|^2 + |x|^2 - 2 q.x clamped at 0, ip = -q.x."""
+    ip = _metric_ip(metric)
+    if q.dim() != 2 or x.dim() != 2 or q.shape[1] != x.shape[1]:
+        raise ValueError("flat_l2: q (B, D) and x (N, D)")
+    if q.dtype != x.dtype or q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("flat_l2: q and x both float32 or both bfloat16")
+    if q.device.type == "cpu":
+        return flat_l2_ref(q, x, metric)
+    _build.check_cuda("flat_l2", q, x)
+    B, D = q.shape
+    N = x.shape[0]
+    out = torch.empty((B, N), dtype=torch.float32, device=q.device)
+    if B == 0 or N == 0:
+        return out
+    _build.launch("repro_flat_l2_dense", q.data_ptr(), x.data_ptr(), out.data_ptr(),
+                  B, N, D, int(q.dtype == torch.bfloat16), ip)
+    flat_l2.launches += 1
+    return out
+
+
+def flat_l2_gathered(q: torch.Tensor, x: torch.Tensor, ids: torch.Tensor,
+                     metric: str = "l2") -> torch.Tensor:
+    """Distances (B, C) f32 from q (B, D) to the rows x[ids[b, c]] of x (N, D),
+    difference form (sum (q - x)^2; ip: -q.x). ids < 0 may yield any value."""
+    ip = _metric_ip(metric)
+    if q.dim() != 2 or x.dim() != 2 or ids.dim() != 2 or q.shape[1] != x.shape[1]:
+        raise ValueError("flat_l2_gathered: q (B, D), x (N, D), ids (B, C)")
+    if q.shape[0] != ids.shape[0]:
+        raise ValueError("flat_l2_gathered: ids must have one row per query")
+    if q.dtype != torch.float32 or x.dtype != torch.float32 or ids.dtype != torch.int32:
+        raise TypeError("flat_l2_gathered: q, x float32 and ids int32")
+    if q.device.type == "cpu":
+        return flat_l2_gathered_ref(q, x, ids, metric)
+    _build.check_cuda("flat_l2_gathered", q, x, ids)
+    B, D = q.shape
+    N, C = x.shape[0], ids.shape[1]
+    out = torch.empty((B, C), dtype=torch.float32, device=q.device)
+    if B == 0 or C == 0:
+        return out
+    _build.launch("repro_flat_l2_gathered", q.data_ptr(), x.data_ptr(), ids.data_ptr(),
+                  out.data_ptr(), B, N, C, D, ip)
+    flat_l2_gathered.launches += 1
+    return out
+
+
+flat_l2.launches = 0
+flat_l2_gathered.launches = 0

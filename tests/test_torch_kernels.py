@@ -1,0 +1,150 @@
+"""The port's kernels (plain versions, which the wrappers run for CPU tensors)
+against the reference's Pallas kernels in interpret mode and their ref.py
+oracles, with tests/test_kernels.py's shapes. The CUDA kernels themselves are
+held against these plain versions on the card by chip_smoke.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import pq as rpq
+from repro.kernels.flat_l2.kernel import flat_l2_pallas
+from repro.kernels.flat_l2.ref import flat_l2_ref
+from repro.kernels.pq_adc.kernel import pq_adc_pallas
+from repro.kernels.pq_adc.ref import pq_adc_ref
+from repro.kernels.pq_encode.kernel import pq_encode_pallas
+from repro.kernels.pq_encode.ref import pq_encode_ref
+from repro.kernels.topk_select.kernel import topk_select_pallas
+from repro.kernels.topk_select.ref import topk_select_ref
+from repro_torch import kernels as K
+
+INTERP = dict(interpret=True)
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("form", ["dense", "gathered"])
+@pytest.mark.parametrize("B,C,M,Kc,block", [
+    (1, 100, 8, 256, 64),
+    (4, 1000, 16, 256, 256),
+    (2, 513, 8, 256, 512),
+    (3, 64, 4, 16, 128),
+])
+def test_pq_adc(B, C, M, Kc, block, form):
+    rng = np.random.RandomState(B * 100 + C)
+    if form == "dense":
+        lut = rng.randn(B, M, Kc).astype(np.float32)
+        codes = rng.randint(0, Kc, (C, M)).astype(np.uint8)
+        got = K.pq_adc(t(lut[:, None]), t(codes), torch.zeros(C, dtype=torch.uint8)).numpy()
+        ref = np.asarray(pq_adc_ref(jnp.asarray(lut), jnp.asarray(codes)))
+        pallas = np.asarray(pq_adc_pallas(jnp.asarray(lut), jnp.asarray(codes), block_c=block,
+                                          **INTERP))
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+        return
+    # gathered + versioned: two coexisting schemas, candidate ids per query
+    V, N = 2, 2 * C
+    luts = rng.randn(B, V, M, Kc).astype(np.float32)
+    codes = rng.randint(0, Kc, (N, M)).astype(np.uint8)
+    versions = rng.randint(0, V, (N,)).astype(np.uint8)
+    ids = rng.randint(0, N, (B, C)).astype(np.int32)
+    ids[:, ::5] = -1  # padding lanes: any value, masked by the caller
+    got = K.pq_adc(t(luts), t(codes), t(versions), t(ids)).numpy()
+    for b in range(B):
+        safe = np.maximum(ids[b], 0)
+        ref = np.asarray(rpq.adc_distance_versioned(
+            jnp.asarray(luts[b]), jnp.asarray(codes[safe]), jnp.asarray(versions[safe])))
+        ok = ids[b] >= 0
+        np.testing.assert_allclose(got[b][ok], ref[ok], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("N,M,dsub,Kc,block", [
+    (100, 4, 8, 256, 64),
+    (257, 8, 4, 256, 128),
+    (64, 2, 16, 64, 256),
+])
+def test_pq_encode(N, M, dsub, Kc, block):
+    rng = np.random.RandomState(N)
+    x = rng.randn(N, M * dsub).astype(np.float32)
+    cb = rng.randn(M, Kc, dsub).astype(np.float32)
+    got = K.pq_encode(t(x), t(cb)).numpy()
+    assert got.dtype == np.uint8
+    core = np.asarray(rpq.encode(rpq.PQSchema(jnp.asarray(cb), jnp.int32(0)), jnp.asarray(x)))
+    np.testing.assert_array_equal(got, core)
+    np.testing.assert_array_equal(got, np.asarray(pq_encode_ref(jnp.asarray(x), jnp.asarray(cb))))
+    np.testing.assert_array_equal(
+        got, np.asarray(pq_encode_pallas(jnp.asarray(x), jnp.asarray(cb), block_n=block, **INTERP)))
+
+
+@pytest.mark.parametrize("data", ["normal", "ties"])
+@pytest.mark.parametrize("B,N,L,block", [
+    (1, 2048, 16, 512),
+    (3, 5000, 32, 1024),
+    (2, 100, 10, 256),
+])
+def test_topk_select(B, N, L, block, data):
+    rng = np.random.RandomState(N + L)
+    if data == "normal":
+        d = rng.randn(B, N).astype(np.float32)
+    else:  # integer-valued floats: many exact ties; +inf entries, one row mostly inf
+        d = rng.randint(0, 8, (B, N)).astype(np.float32)
+        d[rng.rand(B, N) < 0.2] = np.inf
+        d[-1, : N - L // 2] = np.inf
+    v, i = K.topk_select(t(d), L, mark_nonfinite=True)
+    v2, i2 = topk_select_ref(jnp.asarray(d), L=L)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i2))  # indices, ties included
+    np.testing.assert_array_equal(v.numpy(), np.asarray(v2))
+    v3, i3 = topk_select_pallas(jnp.asarray(d), L=L, block_n=block, **INTERP)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i3))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(v3))
+    # without marking: raw positions, +inf entries too, in stable-sort order
+    v4, i4 = K.topk_select(t(d), L)
+    np.testing.assert_array_equal(i4.numpy(), np.argsort(d, axis=1, kind="stable")[:, :L])
+    np.testing.assert_array_equal(v4.numpy(), v.numpy())
+
+
+@pytest.mark.parametrize("B,N,D,metric,dtype", [
+    (16, 128, 64, "l2", "f32"),
+    (50, 333, 96, "l2", "f32"),
+    (8, 64, 32, "ip", "f32"),
+    (129, 257, 100, "l2", "f32"),  # ragged everything
+    (16, 64, 64, "l2", "bf16"),
+    (12, 40, 48, "l2", "gathered"),
+    (7, 30, 20, "ip", "gathered"),
+])
+def test_flat_l2(B, N, D, metric, dtype):
+    rng = np.random.RandomState(B + N + D)
+    q = rng.randn(B, D).astype(np.float32)
+    x = rng.randn(N, D).astype(np.float32)
+    if dtype == "gathered":
+        ids = rng.randint(0, N, (B, 9)).astype(np.int32)
+        got = K.flat_l2_gathered(t(q), t(x), t(ids), metric).numpy()
+        ref = np.asarray(rpq.exact_distance(jnp.asarray(q)[:, None, :], jnp.asarray(x[ids]),
+                                            metric))
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+        return
+    tol = 2e-3 if dtype == "f32" else 5e-2
+    if dtype == "bf16":
+        qj, xj = jnp.asarray(q).astype(jnp.bfloat16), jnp.asarray(x).astype(jnp.bfloat16)
+        qt, xt = t(q).bfloat16(), t(x).bfloat16()
+    else:
+        qj, xj, qt, xt = jnp.asarray(q), jnp.asarray(x), t(q), t(x)
+    got = K.flat_l2(qt, xt, metric).numpy()
+    np.testing.assert_allclose(got, np.asarray(flat_l2_ref(qj, xj, metric=metric)),
+                               rtol=tol, atol=tol)
+    pallas = flat_l2_pallas(qj, xj, block_b=32, block_n=64, block_d=32, metric=metric, **INTERP)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=tol, atol=tol)
+
+
+def test_wrappers_count_only_kernel_launches():
+    """On CPU tensors the wrappers run the plain versions: no launch counted."""
+    K.reset_launch_counts()
+    K.topk_select(torch.zeros(2, 8), 3)
+    K.pq_adc(torch.zeros(1, 1, 2, 4), torch.zeros(3, 2, dtype=torch.uint8),
+             torch.zeros(3, dtype=torch.uint8))
+    K.flat_l2_gathered(torch.zeros(1, 4), torch.zeros(3, 4), torch.zeros(1, 2, dtype=torch.int32))
+    assert K.launch_counts() == {"pq_adc.gathered": 0, "pq_adc.dense": 0, "topk_select.rank": 0,
+                                 "topk_select.iter": 0, "flat_l2.dense": 0,
+                                 "flat_l2.gathered": 0, "pq_encode": 0}
