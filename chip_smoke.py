@@ -9,21 +9,25 @@ Phases, each printed on its own lines; any failure exits non-zero:
  1. environment: card name and power limit (nvidia-smi), torch and CUDA
     versions; float32 matmuls must not run in TF32.
  2. build: the kernels compile from the repository's sources at first use.
- 3. kernels: each kernel against its plain PyTorch version on the card, at
-    the main path's shapes, with the tests' tolerances (flat_l2 also against
-    float64, within a limit that rejects bf16 or TF32 inputs); times of the
-    kernel, the plain version and (where one exists) a single PyTorch call
-    computing the same function.
+ 3. kernels: each kernel form against its plain PyTorch version on the card,
+    at the main path's shapes and at edge shapes, with the tests' tolerances
+    (flat_l2 also against float64, within a limit that rejects bf16 or TF32
+    inputs). Times, each as device time per call (torch.profiler's self
+    device time of the kernels the calls launch): the kernel, its plain
+    version and (where one exists) a single PyTorch call computing the same
+    function; beside them the kernel's host time per call (CUDA events
+    around back-to-back calls), which the host-bound main path pays.
  4. main path: a DiskANNIndex at the paper configuration's widths
     (768-D, M=96, R=32, L=100, W=4, k=10) built through ``insert`` on
     synthetic clustered low-rank data made from ``--seed``; 8 batches of 128
     queries through ``search``; one batch through each filtered plan
-    (beta, qflat, post, brute); recall@10 against ``recall.ground_truth``, at
+    (beta, qflat, post, brute), its first call and the median of 5 more
+    timed; recall@10 against ``recall.ground_truth``, at
     the defaults and with the same beam reranked at k' = 10k.
  5. the card against the CPU: the built state (``snapshot``) restored into a
     ``device="cpu"`` index, one batch searched there with the plain versions.
- 6. every kernel's launch counter (dense and gathered forms apart) rose
-    during phase 4.
+ 6. every kernel's launch counter (each form apart) rose during phase 4,
+    but for the forms in OFF_PATH, which are named with the reason.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -36,11 +40,14 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
+BF16_FLOPS = 989e12  # H100 SXM, bf16 on the tensor cores, dense
 BUILD_BUDGET_S = 400.0  # about a third of the run's 1200 s limit
 N_STOPS = (30_000, 50_000, 100_000)
 # synthetic data (make_data)
@@ -54,6 +61,7 @@ N_CLUSTERS, LATENT, CENTER_SCALE, SPREAD, NOISE = 1000, 32, 2.0, 0.6, 0.05
 RECALL_FLOOR_DEFAULTS = 0.75
 RECALL_FLOOR_WIDE_RERANK = 0.95
 WIDE_RERANK_MULTIPLIER = 10.0
+FILTER_REPEATS = 5  # warmed calls of each filtered plan; their median is its time
 
 
 def fail(msg: str) -> int:
@@ -66,8 +74,23 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def time_ms(torch, fn, iters: int) -> float:
-    """Mean device time of fn over iters launches (CUDA events, warmed)."""
+# the port's CUDA kernels, by the names the profiler gives them
+OUR_KERNELS = ("adc_gathered_kernel", "adc_dense_smem_kernel", "topk_rank_kernel",
+               "topk_chunk_kernel", "topk_merge_kernel", "topk_iter_kernel",
+               "flat_dense_3xtf32_kernel", "flat_dense_bf16_kernel", "flat_gathered_kernel",
+               "pq_encode_kernel")
+# forms the main path does not reach, and why; every other form must launch there
+OFF_PATH = {
+    "topk_select.iter": "L > 1024 (LONG_MAX_L): no cut of the search, build or filtered "
+                        "plans is that wide (the widest is k' = 50)",
+    "flat_l2.dense_bf16": "bf16 inputs: the index stores and queries float32 vectors",
+}
+
+
+def host_ms(torch, fn, iters: int) -> float:
+    """CUDA events around iters back-to-back warmed calls, over iters: the
+    wrapper's enqueue cost per call where the device work is shorter, the
+    device time where it is longer."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -81,9 +104,70 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+
+def graph_ms(torch, fn, iters: int) -> float:
+    """CUDA events around one replay of a CUDA graph of iters calls, over
+    iters: device time with no host gaps between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int, kernels: tuple = ()) -> float:
+    """Device time per call: the self device time of the kernels that iters
+    warmed calls launch (those whose names contain one of ``kernels``, or
+    all), summed under torch.profiler, over iters. Where the profiler records
+    no device time, a CUDA graph of the calls timed with events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    # each window is a profile of its own: the note that events do not carry over is moot
+    warnings.filterwarnings("ignore", message=".*Profiler clears events")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and (not kernels or any(k in e.key for k in kernels)))
+    return us / iters / 1e3 if us > 0 else graph_ms(torch, fn, iters)
+
+
+def timed(torch, kernel, plain, library, iters: int) -> dict:
+    """A kernel's device and host times, its plain version's and a library
+    call's (None where no single PyTorch call computes the same function),
+    all as device time per call."""
+    return dict(ms=device_ms(torch, kernel, iters, OUR_KERNELS),
+                host_ms_per_call=host_ms(torch, kernel, iters),
+                plain_ms=device_ms(torch, plain, max(iters // 4, 3)),
+                library_ms=None if library is None else device_ms(torch, library, iters))
+
+
+def bound(nbytes: float, ops: float, rate: float = FP32_FLOPS) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and ops over ``rate``, in ms."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -123,6 +207,7 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
     from repro_torch.kernels.flat_l2.ref import flat_l2_gathered_ref, flat_l2_ref
     from repro_torch.kernels.pq_adc.ref import pq_adc_ref
     from repro_torch.kernels.pq_encode.ref import pq_encode_ref
+    from repro_torch.kernels.topk_select.ops import LONG_MAX_L, long_chunks
     from repro_torch.kernels.topk_select.ref import topk_select_ref
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -155,44 +240,73 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
     gb, gby = bound(B * C * 4 + n_ok * (M + 1) + touched * 4 + B * C * 4, n_ok * M)
     db, dby = bound(N * (M + 1) + B * V * M * Kc * 4 + B * N * 4, B * N * M)
     out["pq_adc.gathered"] = dict(
-        max_abs_err=err_g, bound_ms=gb, bound_by=gby, library_ms=None,
-        ms=time_ms(torch, lambda: K.pq_adc(luts, codes, versions, ids), 200),
-        plain_ms=time_ms(torch, lambda: pq_adc_ref(luts, codes, versions, ids), 50),
-        shape=f"B={B} C={C} V={V} M={M} K={Kc} N={N}")
+        max_abs_err=err_g, bound_ms=gb, bound_by=gby, shape=f"B={B} C={C} V={V} M={M} K={Kc} N={N}",
+        **timed(torch, lambda: K.pq_adc(luts, codes, versions, ids),
+                lambda: pq_adc_ref(luts, codes, versions, ids), None, 200))
     out["pq_adc.dense"] = dict(
-        max_abs_err=err_d, bound_ms=db, bound_by=dby, library_ms=None,
-        ms=time_ms(torch, lambda: K.pq_adc(luts, codes, versions), 10),
-        plain_ms=time_ms(torch, lambda: pq_adc_ref(luts, codes, versions), 3),
-        shape=f"B={B} N={N} V={V} M={M} K={Kc}")
+        max_abs_err=err_d, bound_ms=db, bound_by=dby, shape=f"B={B} N={N} V={V} M={M} K={Kc}",
+        **timed(torch, lambda: K.pq_adc(luts, codes, versions),
+                lambda: pq_adc_ref(luts, codes, versions), None, 10))
     del luts, codes, versions, got_d, want_d
 
     # -- topk_select at every shape of the path, tie-heavy inputs ----------
-    forms = []
-    shapes = [("merge", B, 100 + C, 100, False), ("frontier", B, 100, 4, False),
-              ("rerank", B, 50, 10, True), ("prune_cut", 100, 316, 32, False),
-              ("brute", B, N, 10, True)]
-    for name, rows, n, L, mark in shapes:
-        d = torch.randint(0, 64, (rows, n), generator=g, device=dev).float()
-        d[torch.rand(rows, n, generator=g, device=dev) < 0.3] = float("inf")
+    def topk_same(d, L, mark, what):
         v1, i1 = K.topk_select(d, L, mark_nonfinite=mark)
         v2, i2 = topk_select_ref(d, L, mark_nonfinite=mark)
-        check(torch.equal(i1, i2), f"topk_select {name}: indices differ")
-        check(torch.equal(v1, v2), f"topk_select {name}: values differ")
+        check(torch.equal(i1, i2), f"topk_select {what}: indices differ")
+        # bit for bit: NaN equals NaN, -0.0 is told from +0.0
+        check(torch.equal(v1.view(torch.int32), v2.view(torch.int32)),
+              f"topk_select {what}: values differ")
+
+    def tie_heavy(rows, n):
+        d = torch.randint(0, 64, (rows, n), generator=g, device=dev).float()
+        d[torch.rand(rows, n, generator=g, device=dev) < 0.3] = float("inf")
+        return d
+
+    forms = {}
+    shapes = [("merge", "rank", B, 100 + C, 100, False), ("frontier", "rank", B, 100, 4, False),
+              ("rerank", "rank", B, 50, 10, True), ("prune_cut", "rank", 100, 316, 32, False),
+              ("brute", "long", B, N, 10, True), ("qflat", "long", B, N, 50, True),
+              ("wide", "iter", B, N, LONG_MAX_L + 1, True)]
+    for name, form, rows, n, L, mark in shapes:
+        d = tie_heavy(rows, n)
+        for m in (mark, not mark):
+            topk_same(d, L, m, f"{name} B={rows} N={n} L={L} mark={m}")
         b_ms, b_by = bound(rows * n * 4 + rows * L * 8, rows * n)
-        it = 200 if n < 10_000 else 20
-        forms.append(dict(
-            form=name, shape=f"B={rows} N={n} L={L}",
-            ms=time_ms(torch, lambda: K.topk_select(d, L, mark), it),
-            plain_ms=time_ms(torch, lambda: topk_select_ref(d, L, mark), it // 4),
-            library_ms=time_ms(torch, lambda: torch.topk(d, L, dim=1, largest=False), it),
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0))  # values equal, checked above
+        plan = " S={} chunk={}".format(*long_chunks(rows, n, L)) if form == "long" else ""
+        it = 200 if n < 10_000 else (20 if form == "long" else 3)
+        forms.setdefault(form, []).append(dict(
+            form=name, shape=f"B={rows} N={n} L={L}{plan}", bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=0.0,  # values equal bit for bit, checked above
+            **timed(torch, lambda: K.topk_select(d, L, mark),
+                    lambda: topk_select_ref(d, L, mark),
+                    lambda: torch.topk(d, L, dim=1, largest=False), it)))
+        del d
+    # the long form at its edges, both ways of marking
+    edges = [("N=1025", tie_heavy(3, 1025), 10), ("N prime", torch.randn(2, 99_991, generator=g,
+                                                                          device=dev), 50)]
+    _, chunk = long_chunks(1, 4096, LONG_MAX_L)
+    check(chunk == LONG_MAX_L, f"long_chunks(1, 4096, {LONG_MAX_L}) gave chunk {chunk}")
+    edges.append(("L = chunk", tie_heavy(1, 4096), LONG_MAX_L))
+    odd = torch.randn(4, 5003, generator=g, device=dev)
+    odd[0] = float("inf")  # a row all +inf
+    odd[1, ::7] = float("nan")  # a row with NaN
+    odd[2, ::3] = 0.0
+    odd[2, 1::3] = -0.0  # -0.0 ties +0.0, lower position first
+    odd[3, ::5] = -float("inf")
+    edges.append(("inf/NaN/-0 rows", odd, 20))
+    for what, d, L in edges:
+        check(d.shape[1] > 1024 and L <= LONG_MAX_L, f"{what}: not a shape of the long form")
+        for m in (False, True):
+            topk_same(d, L, m, f"{what} N={d.shape[1]} L={L} mark={m}")
+    del edges, odd
     # rows up to RANK_MAX_N take the ranking kernel (the beam merge is the
-    # main shape; the other short rows are listed beside it), longer rows
-    # the iterating one (brute force, Q-Flat, ground truth)
-    out["topk_select.rank"] = dict(forms[0], shape="merge " + forms[0]["shape"], forms=forms[1:4])
-    out["topk_select.iter"] = dict(forms[4], shape="brute " + forms[4]["shape"])
-    for e in out["topk_select.rank"], out["topk_select.iter"]:
-        del e["form"]
+    # main shape; the other short rows are listed beside it), longer rows the
+    # two-stage long form (brute force and ground truth at L=10, Q-Flat at
+    # k'=50), and L > LONG_MAX_L the iterating one
+    for form, (main, *more) in forms.items():
+        main["shape"] = f"{main.pop('form')} {main['shape']}"
+        out[f"topk_select.{form}"] = dict(main, forms=more)
 
     # -- flat_l2: gathered difference form (rerank) and dense --------------
     x = torch.randn(N, D, generator=g, device=dev)
@@ -226,26 +340,51 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
     check(err_fd <= f32_limit, f"flat_l2 dense err {err_fd} > f32 limit {f32_limit}")
     check(min(err_bf16, err_tf32) > f32_limit, "the f32 limit does not reject bf16 or TF32")
     del want64
+    # ragged shapes: B and N past the 128x128 tiles, D past the 32-deep
+    # slices; D % 4 != 0 takes the 4-byte copies
+    for nq, nx, dd in ((129, 257, 100), (129, 257, 37)):
+        qr = torch.randn(nq, dd, generator=g, device=dev)
+        xr = torch.randn(nx, dd, generator=g, device=dev)
+        qr64, xr64 = qr.double(), xr.double()
+        lim = (2 * math.sqrt(dd) * torch.finfo(torch.float32).eps
+               * float((qr64 * qr64).sum(1).max() + (xr64 * xr64).sum(1).max()))
+        for metric in ("l2", "ip"):
+            what = f"flat_l2 dense {metric} B={nq} N={nx} D={dd}"
+            got_r = K.flat_l2(qr, xr, metric)
+            check(torch.allclose(got_r, flat_l2_ref(qr, xr, metric), rtol=2e-3, atol=2e-3),
+                  f"{what} against its plain version")
+            dot = qr64 @ xr64.T
+            want_r = (((qr64 * qr64).sum(1)[:, None] + (xr64 * xr64).sum(1)[None] - 2 * dot)
+                      .clamp_min(0) if metric == "l2" else -dot)
+            err = float((got_r.double() - want_r).abs().max())
+            check(err <= lim, f"{what}: err {err} > f32 limit {lim}")
     qb, xb = q[:16, :64].bfloat16().contiguous(), x[:64, :64].bfloat16().contiguous()
-    check(torch.allclose(K.flat_l2(qb, xb), flat_l2_ref(qb, xb), rtol=5e-2, atol=5e-2),
-          "flat_l2 bf16")
+    got_b, want_b = K.flat_l2(qb, xb), flat_l2_ref(qb, xb)
+    err_b = float((got_b - want_b).abs().max())
+    check(torch.allclose(got_b, want_b, rtol=5e-2, atol=5e-2), "flat_l2 bf16")
     rows_read = int(torch.unique(rid).numel())
     rb, rby = bound(B * D * 4 + rows_read * D * 4 + B * 50 * 8, 3 * B * 50 * D)
-    fb, fby = bound((B + N) * D * 4 + B * N * 4, 2 * B * N * D)
+    # three TF32 products on the tensor cores; the f32 bound beside it
+    fb, fby = bound((B + N) * D * 4 + B * N * 4, 3 * 2 * B * N * D, TF32_FLOPS)
+    f32b, _ = bound((B + N) * D * 4 + B * N * 4, 2 * B * N * D)
+    bfb, bfby = bound((B + N) * D * 2 + B * N * 4, 2 * B * N * D, BF16_FLOPS)
     precision = dict(f32_limit=f32_limit, bf16_inputs_err=err_bf16, tf32_inputs_err=err_tf32)
     out["flat_l2.gathered"] = dict(
-        max_abs_err=err_r, f32_limit=f32_limit, bound_ms=rb, bound_by=rby, library_ms=None,
-        ms=time_ms(torch, lambda: K.flat_l2_gathered(q, x, rid), 200),
-        plain_ms=time_ms(torch, lambda: flat_l2_gathered_ref(q, x, rid), 50),
-        shape=f"B={B} C=50 D={D}")
+        max_abs_err=err_r, f32_limit=f32_limit, bound_ms=rb, bound_by=rby,
+        shape=f"B={B} C=50 D={D}",
+        **timed(torch, lambda: K.flat_l2_gathered(q, x, rid),
+                lambda: flat_l2_gathered_ref(q, x, rid), None, 200))
     out["flat_l2.dense"] = dict(
-        max_abs_err=err_fd, **precision, bound_ms=fb, bound_by=fby,
-        ms=time_ms(torch, lambda: K.flat_l2(q, x), 5),
-        plain_ms=time_ms(torch, lambda: flat_l2_ref(q, x), 5),
+        max_abs_err=err_fd, **precision, bound_ms=fb, bound_by=fby, f32_bound_ms=f32b,
         # the Euclidean distance itself (its square root), one call
-        library_ms=time_ms(torch, lambda: torch.cdist(q, x), 5), library="torch.cdist",
-        shape=f"B={B} N={N} D={D}")
-    del x, got_d
+        library="torch.cdist", shape=f"B={B} N={N} D={D}",
+        **timed(torch, lambda: K.flat_l2(q, x), lambda: flat_l2_ref(q, x),
+                lambda: torch.cdist(q, x), 5))
+    q16, x16 = q.bfloat16(), x.bfloat16()
+    out["flat_l2.dense_bf16"] = dict(
+        max_abs_err=err_b, bound_ms=bfb, bound_by=bfby, shape=f"B={B} N={N} D={D} bf16",
+        **timed(torch, lambda: K.flat_l2(q16, x16), lambda: flat_l2_ref(q16, x16), None, 5))
+    del x, got_d, q16, x16
 
     # -- pq_encode: an insert mini-batch and the k-means sample ------------
     cb = torch.randn(M, Kc, dsub, generator=g, device=dev)
@@ -270,10 +409,8 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
     eb, eby = bound(100 * D * 4 + M * Kc * dsub * 4 + 100 * M, 100 * M * Kc * 2 * dsub)
     out["pq_encode"] = dict(
         max_abs_err=worst, mismatches=n_bad, compared=n_all,
-        ms=time_ms(torch, lambda: K.pq_encode(xe, cb), 200),
-        plain_ms=time_ms(torch, lambda: pq_encode_ref(xe, cb), 50),
-        bound_ms=eb, bound_by=eby, library_ms=None, shape=f"N=100 D={D} M={M} K={Kc}",
-    )
+        bound_ms=eb, bound_by=eby, shape=f"N=100 D={D} M={M} K={Kc}",
+        **timed(torch, lambda: K.pq_encode(xe, cb), lambda: pq_encode_ref(xe, cb), None, 200))
     check(set(out) == set(K.launch_counts()), "a kernel was not checked")
     return out
 
@@ -341,11 +478,15 @@ def main_path(torch, np, K, dev, args) -> dict:
     narrow = (np.arange(idx.cfg.capacity) % 50) == 0  # < 5000 documents: Q-Flat
     q0 = queries[:128]
     for mode, mask in (("beta", broad), ("qflat", narrow), ("post", broad), ("brute", broad)):
-        t = time.perf_counter()
-        ids, dists, st = idx.filtered_search(q0, 10, mask, mode=mode)
-        filt[mode] = dict(seconds=time.perf_counter() - t, plan=st.plan, ids=ids, mask=mask)
-        check(ids.shape == (128, 10) and st.plan == mode, f"filtered {mode}")
-        check(bool(mask[ids[ids >= 0]].all()), f"filtered {mode} returned a non-matching doc")
+        secs = []  # the first call, then FILTER_REPEATS warmed ones
+        for _ in range(1 + FILTER_REPEATS):
+            t = time.perf_counter()
+            ids, dists, st = idx.filtered_search(q0, 10, mask, mode=mode)
+            secs.append(time.perf_counter() - t)
+            check(ids.shape == (128, 10) and st.plan == mode, f"filtered {mode}")
+            check(bool(mask[ids[ids >= 0]].all()), f"filtered {mode} returned a non-matching doc")
+        filt[mode] = dict(seconds=float(np.median(secs[1:])), first_seconds=secs[0],
+                          plan=st.plan, ids=ids, mask=mask)
     counts = K.launch_counts()  # the main path ends here
 
     # recall against exact ground truth on the card (flat_l2 + topk_select)
@@ -382,17 +523,14 @@ def main_path(torch, np, K, dev, args) -> dict:
         cmps=float(np.mean([s.cmps for s in stats])),
         expansions=float(np.mean([s.expansions for s in stats])),
         launches=counts, launches_per_query_batch=per_batch,
-        filtered={m: dict(seconds=f["seconds"], recall_at_10=f["recall"]) for m, f in filt.items()},
+        filtered={m: dict(seconds=f["seconds"], first_seconds=f["first_seconds"],
+                          recall_at_10=f["recall"]) for m, f in filt.items()},
     )
     print("main path: " + json.dumps({k: v for k, v in out.items()}), flush=True)
     check(recall >= RECALL_FLOOR_DEFAULTS, f"recall@10 {recall} < {RECALL_FLOOR_DEFAULTS}")
     check(recall_wide >= RECALL_FLOOR_WIDE_RERANK,
           f"recall@10 at k'=10k {recall_wide} < {RECALL_FLOOR_WIDE_RERANK}")
     return out, idx, results[0], queries[:128], gt_docs[:128], draw
-
-
-OUR_KERNELS = ("adc_gathered_kernel", "adc_dense_smem_kernel", "topk_rank_kernel",
-               "topk_iter_kernel", "flat_dense_kernel", "flat_gathered_kernel", "pq_encode_kernel")
 
 
 def profile(torch, np, idx, queries, draw, out_dir: Path) -> dict:
@@ -426,17 +564,15 @@ def profile(torch, np, idx, queries, draw, out_dir: Path) -> dict:
         ka = prof.key_averages()
         (out_dir / f"profile_{name}.txt").write_text(
             ka.table(sort_by="self_device_time_total", row_limit=40))
-        dev_us = lambda e: (getattr(e, "self_device_time_total", 0)
-                            or getattr(e, "self_cuda_time_total", 0))
         kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
-        busy = sum(dev_us(e) for e in kernels)
-        ours = sum(dev_us(e) for e in kernels if any(k in e.key for k in OUR_KERNELS))
-        top = sorted(kernels, key=dev_us, reverse=True)[:6]
+        busy = sum(_device_us(e) for e in kernels)
+        ours = sum(_device_us(e) for e in kernels if any(k in e.key for k in OUR_KERNELS))
+        top = sorted(kernels, key=_device_us, reverse=True)[:6]
         summary[name] = dict(
             wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
             busy_share=busy / wall_us if busy else "not measured",
             port_kernels_ms=ours / 1e3, device_launches=sum(e.count for e in kernels),
-            top=[(e.key[:60], dev_us(e) / 1e3, e.count) for e in top])
+            top=[(e.key[:60], _device_us(e) / 1e3, e.count) for e in top])
         print(f"profile {name}: " + json.dumps(summary[name]), flush=True)
     return summary
 
@@ -488,14 +624,20 @@ def run(args) -> int:
     print(f"build: {'compiled' if _build.BuildInfo.built else 'loaded'} "
           f"{_build.BuildInfo.path} in {_build.BuildInfo.seconds:.1f} s", flush=True)
     for line in _build.BuildInfo.log.splitlines():
-        if "registers" in line or "error" in line.lower() or line.startswith("=="):
+        if any(w in line for w in ("registers", "spill", "rror")) or line.startswith("=="):
             print("  " + line.strip(), flush=True)
 
     # 3. kernels against their plain versions
     kern = kernel_checks(torch, K, dev, args.n)
     for name, k in kern.items():
-        print(f"kernel {name}: ok, {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, "
-              f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}) at {k['shape']}", flush=True)
+        lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
+        print(f"kernel {name}: ok, device {k['ms']:.4f} ms, host {k['host_ms_per_call']:.4f} "
+              f"ms/call (plain {k['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{k['bound_ms']:.4f} ms by {k['bound_by']}) at {k['shape']}", flush=True)
+        for f in k.get("forms", []):
+            print(f"  {f['form']} {f['shape']}: device {f['ms']:.4f} ms, host "
+                  f"{f['host_ms_per_call']:.4f} ms/call, plain {f['plain_ms']:.4f} ms, "
+                  f"library {f['library_ms']:.4f} ms, bound {f['bound_ms']:.5f} ms", flush=True)
     if args.only_kernels:
         print(json.dumps({"kernels": kern, "card": card}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -508,7 +650,10 @@ def run(args) -> int:
     path, idx, gpu_ids, q, gt_docs, draw = main_path(torch, np, K, dev, args)
     versus = cpu_compare(np, idx, gpu_ids, q, gt_docs)
     counts = path["launches"]
-    missing = [k for k, v in counts.items() if v <= 0]
+    for name, why in OFF_PATH.items():
+        print(f"launch check: {name} is off the main path ({counts[name]} launches): {why}",
+              flush=True)
+    missing = [k for k, v in counts.items() if v <= 0 and k not in OFF_PATH]
     check(not missing, f"kernels not launched on the main path: {missing}")
 
     sources = {"pq_adc": 49, "topk_select": 61, "flat_l2": 44, "pq_encode": 29}

@@ -22,8 +22,10 @@ COUNTERS = {
     "pq_adc.gathered": (pq_adc, "gathered_launches"),
     "pq_adc.dense": (pq_adc, "dense_launches"),
     "topk_select.rank": (topk_select, "rank_launches"),
+    "topk_select.long": (topk_select, "long_launches"),
     "topk_select.iter": (topk_select, "iter_launches"),
     "flat_l2.dense": (flat_l2, "launches"),
+    "flat_l2.dense_bf16": (flat_l2, "bf16_launches"),
     "flat_l2.gathered": (flat_l2_gathered, "launches"),
     "pq_encode": (pq_encode, "launches"),
 }

@@ -33,7 +33,10 @@ def flat_l2(q: torch.Tensor, x: torch.Tensor, metric: str = "l2") -> torch.Tenso
         return out
     _build.launch("repro_flat_l2_dense", q.data_ptr(), x.data_ptr(), out.data_ptr(),
                   B, N, D, int(q.dtype == torch.bfloat16), ip)
-    flat_l2.launches += 1
+    if q.dtype == torch.bfloat16:
+        flat_l2.bf16_launches += 1
+    else:
+        flat_l2.launches += 1
     return out
 
 
@@ -62,5 +65,6 @@ def flat_l2_gathered(q: torch.Tensor, x: torch.Tensor, ids: torch.Tensor,
     return out
 
 
-flat_l2.launches = 0
+flat_l2.launches = 0  # f32, the tensor-core kernel
+flat_l2.bf16_launches = 0
 flat_l2_gathered.launches = 0

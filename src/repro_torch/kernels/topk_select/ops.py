@@ -1,12 +1,29 @@
-"""Wrapper of the topk_select kernel: plain version for CPU tensors, the CUDA kernel otherwise."""
+"""Wrapper of the topk_select kernels: plain version for CPU tensors, the CUDA kernels otherwise."""
 from __future__ import annotations
+
+import math
 
 import torch
 
 from .. import _build
 from .ref import topk_select_ref
 
-RANK_MAX_N = 1024  # kRankMaxN in kernel.cu: longer rows take the iterating kernel
+RANK_MAX_N = 1024  # kRankMaxN in kernel.cu: longer rows take the long form
+LONG_MAX_L = 1024  # kLongMaxL in kernel.cu: larger L takes the iterating form
+LONG_BLOCKS = 256  # stage-1 blocks (one per chunk) the long form aims for: 2 per SM on 132
+LONG_MIN_CHUNK = 1024  # shortest chunk worth a block of its own
+
+
+def long_chunks(B: int, N: int, L: int) -> tuple[int, int]:
+    """(S, chunk) of the long form: each row in S chunks of ``chunk`` entries
+    (a multiple of 4, so 16-byte loads stay aligned; the last chunk may be
+    shorter, none is empty), enough chunks that B*S blocks reach about
+    LONG_BLOCKS, each chunk at least max(L, LONG_MIN_CHUNK) long unless the
+    row is shorter, so the merge reads S*L <= max(N, L) keys."""
+    want = max(1, math.ceil(LONG_BLOCKS / max(B, 1)))
+    s = max(1, min(want, N // max(L, LONG_MIN_CHUNK)))
+    chunk = 4 * math.ceil(math.ceil(N / s) / 4)
+    return math.ceil(N / chunk), chunk
 
 
 def topk_select(dists: torch.Tensor, L: int, mark_nonfinite: bool = False
@@ -28,14 +45,18 @@ def topk_select(dists: torch.Tensor, L: int, mark_nonfinite: bool = False
     idx = torch.empty((B, L), dtype=torch.int32, device=dists.device)
     if B == 0:
         return vals, idx
+    form = "rank" if N <= RANK_MAX_N else ("long" if L <= LONG_MAX_L else "iter")
+    S, chunk, ws = 1, N, None
+    if form == "long":
+        S, chunk = long_chunks(B, N, L)
+        ws = torch.empty((B, S, L), dtype=torch.int64, device=dists.device)
     _build.launch("repro_topk_select", dists.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                  B, N, L, int(mark_nonfinite))
-    if N <= RANK_MAX_N:
-        topk_select.rank_launches += 1
-    else:
-        topk_select.iter_launches += 1
+                  None if ws is None else ws.data_ptr(), B, N, L, S, chunk,
+                  int(mark_nonfinite))
+    setattr(topk_select, f"{form}_launches", getattr(topk_select, f"{form}_launches") + 1)
     return vals, idx
 
 
 topk_select.rank_launches = 0
+topk_select.long_launches = 0
 topk_select.iter_launches = 0

@@ -17,6 +17,7 @@ from repro.kernels.pq_encode.ref import pq_encode_ref
 from repro.kernels.topk_select.kernel import topk_select_pallas
 from repro.kernels.topk_select.ref import topk_select_ref
 from repro_torch import kernels as K
+from repro_torch.kernels.topk_select.ops import LONG_MAX_L, LONG_MIN_CHUNK, long_chunks
 
 INTERP = dict(interpret=True)
 
@@ -83,6 +84,7 @@ def test_pq_encode(N, M, dsub, Kc, block):
     (1, 2048, 16, 512),
     (3, 5000, 32, 1024),
     (2, 100, 10, 256),
+    (2, 20_000, 50, None),  # the Q-Flat cut's L on a long row; too long for interpret mode
 ])
 def test_topk_select(B, N, L, block, data):
     rng = np.random.RandomState(N + L)
@@ -96,13 +98,86 @@ def test_topk_select(B, N, L, block, data):
     v2, i2 = topk_select_ref(jnp.asarray(d), L=L)
     np.testing.assert_array_equal(i.numpy(), np.asarray(i2))  # indices, ties included
     np.testing.assert_array_equal(v.numpy(), np.asarray(v2))
-    v3, i3 = topk_select_pallas(jnp.asarray(d), L=L, block_n=block, **INTERP)
-    np.testing.assert_array_equal(i.numpy(), np.asarray(i3))
-    np.testing.assert_array_equal(v.numpy(), np.asarray(v3))
+    if block is not None:
+        v3, i3 = topk_select_pallas(jnp.asarray(d), L=L, block_n=block, **INTERP)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(i3))
+        np.testing.assert_array_equal(v.numpy(), np.asarray(v3))
     # without marking: raw positions, +inf entries too, in stable-sort order
     v4, i4 = K.topk_select(t(d), L)
     np.testing.assert_array_equal(i4.numpy(), np.argsort(d, axis=1, kind="stable")[:, :L])
     np.testing.assert_array_equal(v4.numpy(), v.numpy())
+
+
+@pytest.mark.parametrize("B,N,L", [
+    (128, 100_000, 10), (128, 100_000, 50), (1, 4096, LONG_MAX_L), (3, 1025, 10),
+    (2, 99_991, 50), (1, 1025, 1024), (7, 5003, 20), (1, 3_000_000, 1), (4096, 2000, 7),
+])
+def test_topk_long_chunks(B, N, L):
+    """The long form's plan: S chunks of ``chunk`` entries cover the row, none
+    empty, 16-byte aligned; each at least max(L, LONG_MIN_CHUNK) unless the
+    row is shorter, so the merge reads S*L <= max(N, L) keys. Taking the L
+    smallest of each chunk (stable, ties to the lower position) and then of
+    their union is the L smallest of the row, ties included."""
+    S, chunk = long_chunks(B, N, L)
+    assert chunk % 4 == 0 and S >= 1
+    assert (S - 1) * chunk < N <= S * chunk
+    assert chunk >= min(N, max(L, LONG_MIN_CHUNK))
+    assert S * L <= max(N, L)
+    rng = np.random.RandomState(N + L)
+    row = rng.randint(0, 8, N).astype(np.float32)  # heavy ties
+    row[rng.rand(N) < 0.2] = np.inf
+    kept = np.concatenate([c * chunk + np.argsort(row[c * chunk:(c + 1) * chunk], kind="stable")[:L]
+                           for c in range(S)])
+    merged = kept[np.lexsort((kept, row[kept]))][:L]
+    np.testing.assert_array_equal(merged, np.argsort(row, kind="stable")[:L])
+
+
+def _tf32(a):
+    """a (f32) rounded to TF32's 10-bit mantissa, nearest with ties away (cvt.rna)."""
+    return ((a.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_trunc(a):
+    """What a TF32 tensor core reads of an f32 register: the low 13 bits dropped."""
+    return (a.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_flat_l2_3xtf32_split_error():
+    """The dense kernel's arithmetic at D=768, emulated: each operand a as its
+    TF32 bits hi = trunc(a) and the remainder lo = a - hi (of which the tensor
+    core reads the TF32 bits), lo*hi + hi*lo + hi*hi summed in exact products
+    per k8 step and f32 between steps, f32 norms. Against float64 it stays
+    under chip_smoke's f32 limit 2*sqrt(D)*eps32*max(|q|^2 + |x|^2); the same
+    sum of plain TF32 products (inputs rounded to nearest) exceeds it, so the
+    limit tells the two apart."""
+    B, N, D = 32, 256, 768
+    rng = np.random.RandomState(768)
+    q = rng.randn(B, D).astype(np.float32)
+    x = rng.randn(N, D).astype(np.float32)
+    q64, x64 = q.astype(np.float64), x.astype(np.float64)
+    want = (q64 ** 2).sum(1)[:, None] + (x64 ** 2).sum(1)[None] - 2 * q64 @ x64.T
+    limit = 2 * np.sqrt(D) * np.finfo(np.float32).eps * ((q64 ** 2).sum(1).max()
+                                                        + (x64 ** 2).sum(1).max())
+
+    def distances(products):
+        acc = np.zeros((B, N), np.float32)
+        for k in range(0, D, 8):
+            for a, b in products(q[:, k:k + 8], x[:, k:k + 8]):
+                acc = (acc + (a.astype(np.float64) @ b.T.astype(np.float64))
+                       .astype(np.float32)).astype(np.float32)
+        qn = (q * q).sum(1, dtype=np.float32)
+        xn = (x * x).sum(1, dtype=np.float32)
+        return np.maximum(qn[:, None] + xn[None] - np.float32(2) * acc, 0).astype(np.float64)
+
+    def three(a, b):
+        ah, bh = _tf32_trunc(a), _tf32_trunc(b)
+        al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+        return [(al, bh), (ah, bl), (ah, bh)]
+
+    err_3x = np.abs(distances(three) - want).max()
+    err_1x = np.abs(distances(lambda a, b: [(_tf32(a), _tf32(b))]) - want).max()
+    assert err_3x <= limit / 4, (err_3x, limit)
+    assert err_1x > limit, (err_1x, limit)
 
 
 @pytest.mark.parametrize("B,N,D,metric,dtype", [
@@ -145,6 +220,9 @@ def test_wrappers_count_only_kernel_launches():
     K.pq_adc(torch.zeros(1, 1, 2, 4), torch.zeros(3, 2, dtype=torch.uint8),
              torch.zeros(3, dtype=torch.uint8))
     K.flat_l2_gathered(torch.zeros(1, 4), torch.zeros(3, 4), torch.zeros(1, 2, dtype=torch.int32))
+    K.flat_l2(torch.zeros(2, 4), torch.zeros(3, 4))
+    K.topk_select(torch.zeros(2, 3000), 20)
     assert K.launch_counts() == {"pq_adc.gathered": 0, "pq_adc.dense": 0, "topk_select.rank": 0,
-                                 "topk_select.iter": 0, "flat_l2.dense": 0,
+                                 "topk_select.long": 0, "topk_select.iter": 0,
+                                 "flat_l2.dense": 0, "flat_l2.dense_bf16": 0,
                                  "flat_l2.gathered": 0, "pq_encode": 0}
