@@ -16,7 +16,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
     device time of the kernels the calls launch): the kernel, its plain
     version and (where one exists) a single PyTorch call computing the same
     function; beside them the kernel's host time per call (CUDA events
-    around back-to-back calls), which the host-bound main path pays.
+    around back-to-back calls), which the host-bound main path pays. The
+    launch floor: the device time of one trivial PyTorch kernel
+    (x.add_(1) on 128 elements), which no single launch beats.
  4. main path: a DiskANNIndex at the paper configuration's widths
     (768-D, M=96, R=32, L=100, W=4, k=10) built through ``insert`` on
     synthetic clustered low-rank data made from ``--seed``; 8 batches of 128
@@ -62,6 +64,7 @@ RECALL_FLOOR_DEFAULTS = 0.75
 RECALL_FLOOR_WIDE_RERANK = 0.95
 WIDE_RERANK_MULTIPLIER = 10.0
 FILTER_REPEATS = 5  # warmed calls of each filtered plan; their median is its time
+PROFILE_TRIES = 5  # profiler windows device_ms takes before it times a CUDA graph instead
 
 
 def fail(msg: str) -> int:
@@ -75,7 +78,8 @@ def check(cond: bool, msg: str) -> None:
 
 
 # the port's CUDA kernels, by the names the profiler gives them
-OUR_KERNELS = ("adc_gathered_kernel", "adc_dense_smem_kernel", "topk_rank_kernel",
+OUR_KERNELS = ("adc_staged_kernel", "adc_gathered_kernel", "adc_dense_smem_kernel",
+               "topk_bitonic_kernel",
                "topk_chunk_kernel", "topk_merge_kernel", "topk_iter_kernel",
                "flat_dense_3xtf32_kernel", "flat_dense_bf16_kernel", "flat_gathered_kernel",
                "pq_encode_kernel")
@@ -134,8 +138,13 @@ def graph_ms(torch, fn, iters: int) -> float:
 def device_ms(torch, fn, iters: int, kernels: tuple = ()) -> float:
     """Device time per call: the self device time of the kernels that iters
     warmed calls launch (those whose names contain one of ``kernels``, or
-    all), summed under torch.profiler, over iters. Where the profiler records
-    no device time, a CUDA graph of the calls timed with events."""
+    all), summed under torch.profiler, over iters. A window that recorded
+    device kernels but none named in ``kernels`` is an error: a kernel
+    missing from the filter must not be timed as something else. A window
+    that recorded fewer of them than calls (the profiler now and then loses
+    a window's device events) is taken again, at most PROFILE_TRIES times;
+    after that, one CUDA graph of the calls is timed with events, and a note
+    says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -144,14 +153,21 @@ def device_ms(torch, fn, iters: int, kernels: tuple = ()) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and (not kernels or any(k in e.key for k in kernels)))
-    return us / iters / 1e3 if us > 0 else graph_ms(torch, fn, iters)
+    for _ in range(PROFILE_TRIES):
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        found = [e for e in device if not kernels or any(k in e.key for k in kernels)]
+        check(not device or bool(found),
+              f"device kernels {sorted({e.key[:60] for e in device})} but none named in {kernels}")
+        us = sum(_device_us(e) for e in found)
+        if us > 0 and sum(e.count for e in found) >= iters:
+            return us / iters / 1e3
+    print(f"note: the profiler lost device events in {PROFILE_TRIES} windows; "
+          "timing one CUDA graph of the calls instead", flush=True)
+    return graph_ms(torch, fn, iters)
 
 
 def timed(torch, kernel, plain, library, iters: int) -> dict:
@@ -206,8 +222,9 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
     """One entry per kernel (the keys of K.launch_counts())."""
     from repro_torch.kernels.flat_l2.ref import flat_l2_gathered_ref, flat_l2_ref
     from repro_torch.kernels.pq_adc.ref import pq_adc_ref
+    from repro_torch.kernels.pq_adc.ops import adc_form
     from repro_torch.kernels.pq_encode.ref import pq_encode_ref
-    from repro_torch.kernels.topk_select.ops import LONG_MAX_L, long_chunks
+    from repro_torch.kernels.topk_select.ops import LONG_MAX_L, RANK_MAX_N, long_chunks, topk_form
     from repro_torch.kernels.topk_select.ref import topk_select_ref
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -216,38 +233,109 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
     out = {}
 
     # -- pq_adc: gathered/versioned (beam round) and dense (Q-Flat) --------
+    def adc_same(luts, codes, versions, ids, what):
+        """The kernel against the plain version where ids are rows; +inf where
+        they are not (< 0 or >= N). Returns the largest error."""
+        got = K.pq_adc(luts, codes, versions, ids)
+        ok = (ids >= 0) & (ids < codes.shape[0])
+        want = pq_adc_ref(luts, codes, versions, torch.where(ok, ids, torch.zeros_like(ids)))
+        err = float((got - want).abs()[ok].max()) if bool(ok.any()) else 0.0
+        check(torch.allclose(got[ok], want[ok], rtol=1e-5, atol=1e-5), f"pq_adc {what}: err {err}")
+        # the kernels write +inf there (the plain version, on a CPU rehearsal, any value)
+        check(not got.is_cuda or bool(torch.isinf(got[~ok]).all()),
+              f"pq_adc {what}: an id outside [0, N) not +inf")
+        return err
+
     luts = torch.randn(B, V, M, Kc, generator=g, device=dev)
     codes = torch.randint(0, Kc, (N, M), generator=g, device=dev, dtype=torch.uint8)
     versions = torch.randint(0, V, (N,), generator=g, device=dev, dtype=torch.uint8)
     ids = torch.randint(0, N, (B, C), generator=g, device=dev, dtype=torch.int32)
     ids[:, ::7] = -1  # padding lanes, masked by the caller
-    got = K.pq_adc(luts, codes, versions, ids)
-    want = pq_adc_ref(luts, codes, versions, ids)
-    ok = ids >= 0
-    err_g = float((got - want).abs()[ok].max())
-    check(torch.allclose(got[ok], want[ok], rtol=1e-5, atol=1e-5), f"pq_adc gathered err {err_g}")
+    check(adc_form(C, V, M, Kc, True) == "gathered", "a beam round does not take the staged form")
+    check(adc_form(1, V, M, Kc, True) == "gathered_l2", "the start node does not take the l2 form")
+    err_g = adc_same(luts, codes, versions, ids, "gathered")
+    start = torch.randint(0, N, (B, 1), generator=g, device=dev, dtype=torch.int32)
+    err_s = adc_same(luts, codes, versions, start, "start node")
     got_d = K.pq_adc(luts, codes, versions)
     want_d = pq_adc_ref(luts, codes, versions)
     err_d = float((got_d - want_d).abs().max())
     check(torch.allclose(got_d, want_d, rtol=1e-5, atol=1e-5), f"pq_adc dense err {err_d}")
-    valid = ids[ok].long()
-    vv = versions[valid].long()
-    bb = torch.arange(B, device=dev)[:, None].expand(B, C)[ok]
-    lut_idx = (((bb * V + vv)[:, None] * M + torch.arange(M, device=dev)) * Kc
-               + codes[valid].long())
-    touched = int(torch.unique(lut_idx).numel())
-    n_ok = int(ok.sum())
-    gb, gby = bound(B * C * 4 + n_ok * (M + 1) + touched * 4 + B * C * 4, n_ok * M)
+    # the gathered forms at their edges; each case takes the form adc_form gives it
+    edges = []
+    for what, nb, nc, nv, nm, nk, setup in (
+            ("one schema of V=2", 8, C, 2, M, Kc, "one"), ("V=1", 8, C, 1, M, Kc, ""),
+            ("every id -1", 8, C, V, M, Kc, "none"), ("ids >= N", 8, C, V, M, Kc, "past"),
+            ("C=1", 8, 1, V, M, Kc, ""), ("C=193, past one tile", 8, 193, V, M, Kc, ""),
+            ("C=400, three tiles", 4, 400, V, M, Kc, ""), ("M=8", 8, C, V, 8, Kc, ""),
+            ("M=37", 8, C, V, 37, Kc, ""), ("K=16", 8, C, V, M, 16, ""),
+            ("M=192, past one block", 4, C, V, 192, Kc, "")):
+        n_rows = 1000
+        el = torch.randn(nb, nv, nm, nk, generator=g, device=dev)
+        ec = torch.randint(0, nk, (n_rows, nm), generator=g, device=dev, dtype=torch.uint8)
+        ev = torch.randint(0, nv, (n_rows,), generator=g, device=dev, dtype=torch.uint8)
+        ei = torch.randint(0, n_rows, (nb, nc), generator=g, device=dev, dtype=torch.int32)
+        if setup == "one":
+            ev.fill_(1)
+        elif setup == "none":
+            ei.fill_(-1)
+        elif setup == "past":
+            ei[:, ::3] = n_rows + torch.arange(ei[:, ::3].numel(), device=dev,
+                                               dtype=torch.int32).reshape(nb, -1)
+        form = adc_form(nc, nv, nm, nk, True)
+        edges.append(dict(case=what, form=form,
+                          max_abs_err=adc_same(el, ec, ev, ei, f"{what} ({form})")))
+    check(edges[-1]["form"] == "gathered_l2", "an oversized table did not take the l2 form")
+    print("pq_adc gathered edges: " + "; ".join(f"{e['case']} -> {e['form']} err "
+                                                f"{e['max_abs_err']:.2e}" for e in edges),
+          flush=True)
+
+    def gathered_bound(codes, versions, ids):
+        """Bytes of one gathered call: ids, each valid row's code bytes and
+        version, each table entry its lookups touch, the output."""
+        Bq, Cq = ids.shape
+        ok = ids >= 0
+        valid = ids[ok].long()
+        bq = torch.arange(Bq, device=dev)[:, None].expand(Bq, Cq)[ok]
+        lut_idx = (((bq * V + versions[valid].long())[:, None] * M + torch.arange(M, device=dev))
+                   * Kc + codes[valid].long())
+        n_ok = int(ok.sum())
+        return bound(Bq * Cq * 4 + n_ok * (M + 1) + int(torch.unique(lut_idx).numel()) * 4
+                     + Bq * Cq * 4, n_ok * M)
+
+    gb, gby = gathered_bound(codes, versions, ids)
     db, dby = bound(N * (M + 1) + B * V * M * Kc * 4 + B * N * 4, B * N * M)
     out["pq_adc.gathered"] = dict(
-        max_abs_err=err_g, bound_ms=gb, bound_by=gby, shape=f"B={B} C={C} V={V} M={M} K={Kc} N={N}",
+        max_abs_err=err_g, bound_ms=gb, bound_by=gby, edges=edges,
+        shape=f"B={B} C={C} V={V} M={M} K={Kc} N={N}",
         **timed(torch, lambda: K.pq_adc(luts, codes, versions, ids),
                 lambda: pq_adc_ref(luts, codes, versions, ids), None, 200))
+    # the l2 form at the build's beam rounds (W=1: C = R_slack = 41 rows for
+    # each of a mini-batch's 100 inserts), rows of two schemas and of one
+    Bb, Cb = 100, 41
+    check(adc_form(Cb, V, M, Kc, True) == "gathered_l2", "a build round does not take the l2 form")
+    luts_b = luts[:Bb].contiguous()
+    ids_b = torch.randint(0, N, (Bb, Cb), generator=g, device=dev, dtype=torch.int32)
+    ids_b[:, ::7] = -1
+    one = torch.ones_like(versions)
+    err_b2 = adc_same(luts_b, codes, versions, ids_b, "build round, two schemas")
+    err_b1 = adc_same(luts_b, codes, one, ids_b, "build round, one schema")
+    lb, lby = gathered_bound(codes, versions, ids_b)
+    lb1, _ = gathered_bound(codes, one, ids_b)
+    one_schema = dict(form="one schema", shape=f"B={Bb} C={Cb} V={V} M={M} K={Kc} N={N}",
+                      bound_ms=lb1, max_abs_err=err_b1,
+                      **timed(torch, lambda: K.pq_adc(luts_b, codes, one, ids_b),
+                              lambda: pq_adc_ref(luts_b, codes, one, ids_b), None, 200))
+    out["pq_adc.gathered_l2"] = dict(
+        max_abs_err=max(err_b2, err_b1), start_node_max_abs_err=err_s, bound_ms=lb,
+        bound_by=lby, shape=f"build round, two schemas B={Bb} C={Cb} V={V} M={M} K={Kc} N={N}",
+        forms=[one_schema],
+        **timed(torch, lambda: K.pq_adc(luts_b, codes, versions, ids_b),
+                lambda: pq_adc_ref(luts_b, codes, versions, ids_b), None, 200))
     out["pq_adc.dense"] = dict(
         max_abs_err=err_d, bound_ms=db, bound_by=dby, shape=f"B={B} N={N} V={V} M={M} K={Kc}",
         **timed(torch, lambda: K.pq_adc(luts, codes, versions),
                 lambda: pq_adc_ref(luts, codes, versions), None, 10))
-    del luts, codes, versions, got_d, want_d
+    del luts, codes, versions, got_d, want_d, luts_b, one
 
     # -- topk_select at every shape of the path, tie-heavy inputs ----------
     def topk_same(d, L, mark, what):
@@ -264,11 +352,12 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
         return d
 
     forms = {}
-    shapes = [("merge", "rank", B, 100 + C, 100, False), ("frontier", "rank", B, 100, 4, False),
-              ("rerank", "rank", B, 50, 10, True), ("prune_cut", "rank", 100, 316, 32, False),
-              ("brute", "long", B, N, 10, True), ("qflat", "long", B, N, 50, True),
-              ("wide", "iter", B, N, LONG_MAX_L + 1, True)]
-    for name, form, rows, n, L, mark in shapes:
+    shapes = [("merge", B, 100 + C, 100, False), ("frontier", B, 100, 4, False),
+              ("rerank", B, 50, 10, True), ("prune_cut", 100, 316, 32, False),
+              ("brute", B, N, 10, True), ("qflat", B, N, 50, True),
+              ("wide", B, N, LONG_MAX_L + 1, True)]
+    for name, rows, n, L, mark in shapes:
+        form = topk_form(n, L)
         d = tie_heavy(rows, n)
         for m in (mark, not mark):
             topk_same(d, L, m, f"{name} B={rows} N={n} L={L} mark={m}")
@@ -282,6 +371,25 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
                     lambda: topk_select_ref(d, L, mark),
                     lambda: torch.topk(d, L, dim=1, largest=False), it)))
         del d
+    # the rank form at its edges: L = 1 and L = N, tie-heavy rows and rows
+    # all +inf, with NaN, with +-0.0 and -inf, both ways of marking
+    for n in (1, 2, 33, 264, 316, RANK_MAX_N):
+        check(topk_form(n, n) == "rank", f"N={n}: not a shape of the rank form")
+        d = tie_heavy(5, n)
+        for L in sorted({1, n}):
+            for m in (False, True):
+                topk_same(d, L, m, f"rank edge N={n} L={L} mark={m}")
+    for n in (264, RANK_MAX_N):
+        odd = torch.randn(4, n, generator=g, device=dev)
+        odd[0] = float("inf")
+        odd[1, ::7] = float("nan")
+        odd[2, ::3] = 0.0
+        odd[2, 1::3] = -0.0
+        odd[3, ::5] = -float("inf")
+        for L in (10, n):
+            for m in (False, True):
+                topk_same(odd, L, m, f"rank inf/NaN/-0 rows N={n} L={L} mark={m}")
+    del odd
     # the long form at its edges, both ways of marking
     edges = [("N=1025", tie_heavy(3, 1025), 10), ("N prime", torch.randn(2, 99_991, generator=g,
                                                                           device=dev), 50)]
@@ -459,6 +567,12 @@ def main_path(torch, np, K, dev, args) -> dict:
     print(f"build: N={n} in {build_s:.1f} s = {n / build_s:.1f} inserts/s"
           + (f"; {cut}" if cut else ""), flush=True)
 
+    # the live rows by schema version while the searches run: the staged ADC
+    # form copies only the versions a round's candidates carry
+    ver = idx.pv.versions[:n][idx.pv.live[:n]]
+    version_share = {int(v): float((ver == v).mean()) for v in np.unique(ver)}
+    print(f"search: live rows by schema version {version_share}", flush=True)
+
     counts_before_search = K.launch_counts()
     lat, results, stats = [], [], []
     for i in range(8):
@@ -522,7 +636,7 @@ def main_path(torch, np, K, dev, args) -> dict:
         hops=float(np.mean([s.hops for s in stats])),
         cmps=float(np.mean([s.cmps for s in stats])),
         expansions=float(np.mean([s.expansions for s in stats])),
-        launches=counts, launches_per_query_batch=per_batch,
+        launches=counts, launches_per_query_batch=per_batch, version_share=version_share,
         filtered={m: dict(seconds=f["seconds"], first_seconds=f["first_seconds"],
                           recall_at_10=f["recall"]) for m, f in filt.items()},
     )
@@ -627,19 +741,24 @@ def run(args) -> int:
         if any(w in line for w in ("registers", "spill", "rror")) or line.startswith("=="):
             print("  " + line.strip(), flush=True)
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions, and the floor no launch beats:
+    # one trivial PyTorch elementwise kernel on 128 elements
     kern = kernel_checks(torch, K, dev, args.n)
+    tiny = torch.zeros(128, device=dev)
+    floor_ms = device_ms(torch, lambda: tiny.add_(1), 200)
+    print(f"launch floor: x.add_(1) on 128 elements, device {floor_ms:.5f} ms/call", flush=True)
     for name, k in kern.items():
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         print(f"kernel {name}: ok, device {k['ms']:.4f} ms, host {k['host_ms_per_call']:.4f} "
               f"ms/call (plain {k['plain_ms']:.4f} ms, library {lib}, bound "
               f"{k['bound_ms']:.4f} ms by {k['bound_by']}) at {k['shape']}", flush=True)
         for f in k.get("forms", []):
+            lib = "none" if f["library_ms"] is None else f"{f['library_ms']:.4f} ms"
             print(f"  {f['form']} {f['shape']}: device {f['ms']:.4f} ms, host "
                   f"{f['host_ms_per_call']:.4f} ms/call, plain {f['plain_ms']:.4f} ms, "
-                  f"library {f['library_ms']:.4f} ms, bound {f['bound_ms']:.5f} ms", flush=True)
+                  f"library {lib}, bound {f['bound_ms']:.5f} ms", flush=True)
     if args.only_kernels:
-        print(json.dumps({"kernels": kern, "card": card}))
+        print(json.dumps({"kernels": kern, "card": card, "launch_floor_ms": floor_ms}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
@@ -657,7 +776,7 @@ def run(args) -> int:
     check(not missing, f"kernels not launched on the main path: {missing}")
 
     sources = {"pq_adc": 49, "topk_select": 61, "flat_l2": 44, "pq_encode": 29}
-    line = {"kernels": [], "card": card}
+    line = {"kernels": [], "card": card, "launch_floor_ms": floor_ms}
     for name, k in kern.items():
         kernel = name.split(".")[0]
         entry = dict(name=name, route="cuda",
@@ -671,8 +790,8 @@ def run(args) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(kernels=line["kernels"], main_path=path,
-                                                  card_vs_cpu=versus, profile=prof, card=card),
-                                             indent=1))
+                                                  card_vs_cpu=versus, profile=prof, card=card,
+                                                  launch_floor_ms=floor_ms), indent=1))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

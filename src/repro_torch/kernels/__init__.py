@@ -20,6 +20,7 @@ from .topk_select.ops import topk_select
 # one launch counter per CUDA kernel: (wrapper, the attribute it counts in)
 COUNTERS = {
     "pq_adc.gathered": (pq_adc, "gathered_launches"),
+    "pq_adc.gathered_l2": (pq_adc, "gathered_l2_launches"),
     "pq_adc.dense": (pq_adc, "dense_launches"),
     "topk_select.rank": (topk_select, "rank_launches"),
     "topk_select.long": (topk_select, "long_launches"),

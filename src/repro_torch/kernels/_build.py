@@ -33,12 +33,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of each launcher: every one returns cudaGetLastError() as int
 SIGNATURES = {
-    # luts, codes, versions, ids|NULL, out, B, V, M, K, N, C, stream
-    "repro_pq_adc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # luts, codes, versions, ids|NULL, out, B, V, M, K, N, C, form, stream
+    "repro_pq_adc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, codebooks, codes, N, M, K, dsub, stream
     "repro_pq_encode": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # dists, vals, idx, ws|NULL, B, N, L, S, chunk, mark_nonfinite, stream
-    "repro_topk_select": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # dists, vals, idx, ws|NULL, B, N, L, S, chunk, mark_nonfinite, form, stream
+    "repro_topk_select": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, x, out, B, N, D, is_bf16, metric_ip, stream
     "repro_flat_l2_dense": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, x, ids, out, B, N, C, D, metric_ip, stream
@@ -131,11 +131,26 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+# each launcher's ctypes function, resolved once
+_FUNCTIONS: dict = {}
+# the current stream's handle without building a torch.cuda.Stream per call
+# (CUDA builds of PyTorch have it; the public call gives the same stream)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream() -> int:
+    """The handle of PyTorch's current stream on the current device."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(torch.cuda.current_device())
+    return torch.cuda.current_stream().cuda_stream
+
+
 def launch(name: str, *args) -> None:
     """Call one C launcher on PyTorch's current stream; raise on a CUDA error."""
-    fn = getattr(library(), name)
-    stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*args, stream)
+    fn = _FUNCTIONS.get(name)
+    if fn is None:
+        fn = _FUNCTIONS[name] = getattr(library(), name)
+    err = fn(*args, current_stream())
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

@@ -1,4 +1,4 @@
-"""Wrapper of the pq_adc kernel: plain version for CPU tensors, the CUDA kernel otherwise."""
+"""Wrapper of the pq_adc kernels: plain version for CPU tensors, a CUDA kernel otherwise."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,6 +7,46 @@ import torch
 
 from .. import _build
 from .ref import pq_adc_ref
+
+SMEM_PER_BLOCK = 232_448  # Hopper's opt-in shared memory per block (H100, H200)
+# Fewer rows per query than this take the l2 form: the staged forms cost
+# about 5-6 us whatever the rows (the version OR, barriers, one copy per
+# chunk), the l2 form about 0.1 us more per row per query. Measured on the
+# H100 (scripts/torch_round_kernels.py --designs, B=100-128, M=96, K=256):
+# at 41 rows, the build's beam (W=1), l2 wins with one schema and with two;
+# at 64, staged wins. The search's start node (C=1) and a few rows through
+# adc_distance_versioned take l2 too, and so does a table one block cannot
+# hold (V*M*K*4 past about 210 KB, e.g. M=192 or three schemas at M=96):
+# no configuration of the index has one.
+STAGED_MIN_ROWS = 64
+# staged form: candidates per pass (two threads each), the bytes before the
+# table, most schema versions (one 32-bit mask) -- kStagedTile, kHeader and
+# the mask in kernel.cu
+STAGED_TILE = 192
+STAGED_HEADER = 128
+STAGED_MAX_V = 32
+# form codes of the C launcher
+FORMS = {"gathered_l2": 0, "gathered": 1, "dense": 2}
+
+
+def staged_smem_bytes(V: int, M: int, K: int) -> int:
+    """Dynamic shared memory of one staged block (staged_smem in kernel.cu):
+    the header, V tables of M x K, and per candidate of a tile its code bytes
+    (an odd number of words)."""
+    stride = ((-(-M // 4)) | 1) * 4
+    return STAGED_HEADER + V * M * K * 4 + STAGED_TILE * stride
+
+
+def adc_form(C: int, V: int, M: int, K: int, gathered: bool) -> str:
+    """The kernel form for C rows per query ('gathered', 'gathered_l2' or
+    'dense'), from the shape alone."""
+    if C < STAGED_MIN_ROWS:
+        return "gathered_l2"
+    if not gathered:
+        fits = V * M * K * 4 <= SMEM_PER_BLOCK and (V * M * K) % 4 == 0
+        return "dense" if fits else "gathered_l2"
+    fits = staged_smem_bytes(V, M, K) <= SMEM_PER_BLOCK
+    return "gathered" if fits and K % 4 == 0 and V <= STAGED_MAX_V else "gathered_l2"
 
 
 def pq_adc(luts: torch.Tensor, codes: torch.Tensor, versions: torch.Tensor,
@@ -36,17 +76,18 @@ def pq_adc(luts: torch.Tensor, codes: torch.Tensor, versions: torch.Tensor,
     out = torch.empty((B, C), dtype=torch.float32, device=luts.device)
     if B == 0 or C == 0:
         return out
+    form = adc_form(C, V, M, K, ids is not None)
+    if form != "gathered_l2" and luts.data_ptr() % 16:
+        luts = luts.clone()  # the table copies need 16-byte alignment; a fresh tensor has it
     _build.launch(
         "repro_pq_adc", luts.data_ptr(), codes.data_ptr(), versions.data_ptr(),
         ids.data_ptr() if ids is not None else None, out.data_ptr(),
-        B, V, M, K, N, C,
+        B, V, M, K, N, C, FORMS[form],
     )
-    if ids is None:
-        pq_adc.dense_launches += 1
-    else:
-        pq_adc.gathered_launches += 1
+    setattr(pq_adc, f"{form}_launches", getattr(pq_adc, f"{form}_launches") + 1)
     return out
 
 
-pq_adc.dense_launches = 0
 pq_adc.gathered_launches = 0
+pq_adc.gathered_l2_launches = 0
+pq_adc.dense_launches = 0

@@ -19,11 +19,20 @@
 // work per byte is a handful of compares. At the long rows of the brute and
 // Q-Flat plans (B=128, N=1e5) that is 51.2 MB, 0.0153 ms at 3.35 TB/s.
 //
-// Design, three forms picked by the launcher from N and L:
+// Design, three forms; ops.py picks one by N and L (topk_form) and passes
+// its code:
 //  * rank, N <= 1024 (beam merge N=264, frontier N=100, rerank N=50, prune
-//    cut N~300): one block per row; the row's keys sit in shared memory and
-//    every entry computes its rank as the number of smaller keys; entries
-//    with rank < L write themselves to slot rank. One pass.
+//    cut N~316): a bitonic sort of the row's keys padded with kNone to P, a
+//    power of two >= max(N, 32), cut to L. A thread holds E = 2 consecutive
+//    keys (one for P = 32) in registers: the stride-1 stages are exchanged in
+//    registers, strides below 32E with __shfl_xor_sync, and only larger ones
+//    (P >= 128, two or more warps to a row) through shared memory, two
+//    buffers in turn so that an exchange takes one barrier. Rows of
+//    P <= 64 take one warp each, four rows to a block, and need no block
+//    barrier. The previous form counted each key's rank against all N keys,
+//    one after another (a chain of N compares per thread); this one is
+//    log2(P) (log2(P) + 1) / 2 stages of a compare and a select each, and
+//    the per-stage tests depend on the thread, not the key.
 //  * long, N > 1024 and L <= kLongMaxL (brute force, ground truth, Q-Flat
 //    over the collection): two stages, as the Pallas kernel's blockwise
 //    top-L plus merge, but each reads its input once. Stage 1 cuts each row
@@ -77,19 +86,94 @@ __device__ __forceinline__ void write_out(const float* row, float* vals, int32_t
   idx[slot] = (mark && !isfinite(v)) ? -1 : pos;
 }
 
-__global__ void topk_rank_kernel(const float* __restrict__ d, float* __restrict__ vals,
-                                 int32_t* __restrict__ idx, int N, int L, int mark) {
-  __shared__ u64 keys[kRankMaxN];
-  const int64_t b = blockIdx.x;
-  const float* row = d + b * N;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) keys[i] = make_key(row[i], i);
-  __syncthreads();
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    const u64 k = keys[i];
-    int rank = 0;
-    for (int j = 0; j < N; ++j) rank += keys[j] < k;
-    if (rank < L) write_out(row, vals + b * L, idx + b * L, rank, i, mark);
+// ---- rank form: a bitonic sort of each short row ---------------------------
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// P keys per row (a power of two >= 32), E per thread: P / E threads to a
+// row, kRows rows to a block.
+template <int P, int E, int kRows>
+__global__ void __launch_bounds__(P / E * kRows)
+    topk_bitonic_kernel(const float* __restrict__ d, float* __restrict__ vals,
+                        int32_t* __restrict__ idx, int B, int N, int L, int mark) {
+  constexpr int kTpr = P / E;  // threads per row
+  static_assert(kTpr % 32 == 0 && (kTpr == 32 || kRows == 1), "a row is one warp or a block");
+  constexpr int kLogP = P == 32 ? 5 : P == 64 ? 6 : P == 128 ? 7 : P == 256 ? 8 : P == 512 ? 9 : 10;
+  static_assert(1 << kLogP == P, "P is a power of two from 32 to 1024");
+  __shared__ u64 xch[2][kTpr > 32 ? P : 1];  // strides past a warp, two buffers in turn
+  __shared__ float xs[kRows][P];           // the row's values, read back for the output
+  const int sub = threadIdx.x / kTpr, t = threadIdx.x % kTpr;
+  const int64_t b = (int64_t)blockIdx.x * kRows + sub;
+  const bool live = b < B;  // a block's last rows may not exist; they sort kNone
+  const float* row = d + (live ? b : 0) * N;
+  const int base = t * E;  // this thread's keys are [base, base + E)
+  u64 v[E];
+  int buf = 0;  // the exchange buffer: alternating, one barrier per exchange suffices
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const bool ok = live && base + e < N;
+    const float x = ok ? row[base + e] : 0.f;
+    v[e] = ok ? make_key(x, base + e) : kNone;
+    xs[sub][base + e] = x;
   }
+  // Stage (k, j) pairs key i with key i ^ j; the lower of a pair keeps the
+  // smaller key when (i & k) == 0. For j, k >= E both tests depend on the
+  // thread alone, not on e.
+#pragma unroll
+  for (int lk = 1; lk <= kLogP; ++lk) {  // linear counters, so both loops unroll fully
+    const int k = 1 << lk;
+#pragma unroll
+    for (int lj = lk - 1; lj >= 0; --lj) {
+      const int j = 1 << lj;
+      if (j < E) {  // both keys in this thread
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          if ((e & j) == 0) {
+            const bool up = k < E ? (e & k) == 0 : (base & k) == 0;
+            const u64 a = v[e], c = v[e | j];
+            const bool swap = (c < a) == up;
+            v[e] = swap ? c : a;
+            v[e | j] = swap ? a : c;
+          }
+        }
+      } else {
+        const bool keep_min = ((base & j) == 0) == ((base & k) == 0);
+        u64 o[E];
+        if (j < 32 * E) {  // the partner is lane ^ (j / E) of this warp
+#pragma unroll
+          for (int e = 0; e < E; ++e) o[e] = __shfl_xor_sync(kFull, v[e], j / E);
+        } else {  // another warp of the row
+          u64* x = xch[buf];
+          buf ^= 1;
+#pragma unroll
+          for (int e = 0; e < E; ++e) x[base + e] = v[e];
+          __syncthreads();
+#pragma unroll
+          for (int e = 0; e < E; ++e) o[e] = x[(base + e) ^ j];
+        }
+#pragma unroll
+        for (int e = 0; e < E; ++e) v[e] = (o[e] < v[e]) == keep_min ? o[e] : v[e];
+      }
+    }
+  }
+  __syncthreads();  // xs is read at other threads' positions
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int s = base + e;
+    if (live && s < L) {
+      const int pos = (int)(uint32_t)(v[e] & 0xffffffffull);
+      const float x = xs[sub][pos];
+      vals[b * L + s] = x;
+      idx[b * L + s] = (mark && !isfinite(x)) ? -1 : pos;
+    }
+  }
+}
+
+template <int P, int E, int kRows>
+void launch_bitonic(const float* d, float* vals, int32_t* idx, int B, int N, int L, int mark,
+                    cudaStream_t stream) {
+  topk_bitonic_kernel<P, E, kRows><<<(B + kRows - 1) / kRows, kRows * (P / E), 0, stream>>>(
+      d, vals, idx, B, N, L, mark);
 }
 
 // ---- long form: a running top-L per block ---------------------------------
@@ -326,15 +410,30 @@ __global__ void topk_iter_kernel(const float* __restrict__ d, float* __restrict_
 
 }  // namespace
 
+// form: 0 rank (N <= kRankMaxN), 1 long (L <= kLongMaxL), 2 iter;
 // ws: (B, S, L) int64 workspace of the long form (NULL for the others);
 // chunk: entries per chunk, a multiple of 4, with S = ceil(N / chunk).
 extern "C" int repro_topk_select(const float* d, float* vals, int32_t* idx, void* ws, int B,
-                                 int N, int L, int S, int chunk, int mark_nonfinite,
+                                 int N, int L, int S, int chunk, int mark_nonfinite, int form,
                                  cudaStream_t stream) {
-  if (N <= kRankMaxN) {
-    const int threads = N <= 128 ? 128 : (N <= 256 ? 256 : 512);
-    topk_rank_kernel<<<B, threads, 0, stream>>>(d, vals, idx, N, L, mark_nonfinite);
-  } else if (L <= kLongMaxL) {
+  if (form == 0) {
+    if (N <= 32) {
+      launch_bitonic<32, 1, 4>(d, vals, idx, B, N, L, mark_nonfinite, stream);
+    } else if (N <= 64) {
+      launch_bitonic<64, 2, 4>(d, vals, idx, B, N, L, mark_nonfinite, stream);
+    } else if (N <= 128) {
+      launch_bitonic<128, 2, 1>(d, vals, idx, B, N, L, mark_nonfinite, stream);
+    } else if (N <= 256) {
+      launch_bitonic<256, 2, 1>(d, vals, idx, B, N, L, mark_nonfinite, stream);
+    } else if (N <= 512) {
+      launch_bitonic<512, 2, 1>(d, vals, idx, B, N, L, mark_nonfinite, stream);
+    } else if (N <= kRankMaxN) {
+      launch_bitonic<1024, 2, 1>(d, vals, idx, B, N, L, mark_nonfinite, stream);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  } else if (form == 1) {
+    if (L > kLongMaxL || ws == nullptr) return (int)cudaErrorInvalidValue;
     u64* keys = static_cast<u64*>(ws);
     const dim3 grid(B, S);
     if (N % 4 == 0 && chunk % 4 == 0 && reinterpret_cast<uintptr_t>(d) % 16 == 0) {
@@ -345,8 +444,10 @@ extern "C" int repro_topk_select(const float* d, float* vals, int32_t* idx, void
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     topk_merge_kernel<<<B, kThreads, 0, stream>>>(keys, d, vals, idx, N, L, S, mark_nonfinite);
-  } else {
+  } else if (form == 2) {
     topk_iter_kernel<<<B, 1024, 0, stream>>>(d, vals, idx, N, L, mark_nonfinite);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,19 @@ LONG_BLOCKS = 256  # stage-1 blocks (one per chunk) the long form aims for: 2 pe
 LONG_MIN_CHUNK = 1024  # shortest chunk worth a block of its own
 
 
+# form codes of the C launcher
+FORMS = {"rank": 0, "long": 1, "iter": 2}
+
+
+def topk_form(N: int, L: int) -> str:
+    """The kernel form for rows of N keeping L, from the shape alone: rows up
+    to RANK_MAX_N take the rank form (a bitonic sort), longer ones the
+    two-stage long form, and L > LONG_MAX_L the iterating one."""
+    if N <= RANK_MAX_N:
+        return "rank"
+    return "long" if L <= LONG_MAX_L else "iter"
+
+
 def long_chunks(B: int, N: int, L: int) -> tuple[int, int]:
     """(S, chunk) of the long form: each row in S chunks of ``chunk`` entries
     (a multiple of 4, so 16-byte loads stay aligned; the last chunk may be
@@ -45,14 +58,14 @@ def topk_select(dists: torch.Tensor, L: int, mark_nonfinite: bool = False
     idx = torch.empty((B, L), dtype=torch.int32, device=dists.device)
     if B == 0:
         return vals, idx
-    form = "rank" if N <= RANK_MAX_N else ("long" if L <= LONG_MAX_L else "iter")
+    form = topk_form(N, L)
     S, chunk, ws = 1, N, None
     if form == "long":
         S, chunk = long_chunks(B, N, L)
         ws = torch.empty((B, S, L), dtype=torch.int64, device=dists.device)
     _build.launch("repro_topk_select", dists.data_ptr(), vals.data_ptr(), idx.data_ptr(),
                   None if ws is None else ws.data_ptr(), B, N, L, S, chunk,
-                  int(mark_nonfinite))
+                  int(mark_nonfinite), FORMS[form])
     setattr(topk_select, f"{form}_launches", getattr(topk_select, f"{form}_launches") + 1)
     return vals, idx
 

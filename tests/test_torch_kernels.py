@@ -17,7 +17,10 @@ from repro.kernels.pq_encode.ref import pq_encode_ref
 from repro.kernels.topk_select.kernel import topk_select_pallas
 from repro.kernels.topk_select.ref import topk_select_ref
 from repro_torch import kernels as K
-from repro_torch.kernels.topk_select.ops import LONG_MAX_L, LONG_MIN_CHUNK, long_chunks
+from repro_torch.core import pq as tpq
+from repro_torch.kernels.pq_adc import ops as adc_ops
+from repro_torch.kernels.topk_select.ops import (LONG_MAX_L, LONG_MIN_CHUNK, RANK_MAX_N,
+                                                 long_chunks, topk_form)
 
 INTERP = dict(interpret=True)
 
@@ -222,7 +225,191 @@ def test_wrappers_count_only_kernel_launches():
     K.flat_l2_gathered(torch.zeros(1, 4), torch.zeros(3, 4), torch.zeros(1, 2, dtype=torch.int32))
     K.flat_l2(torch.zeros(2, 4), torch.zeros(3, 4))
     K.topk_select(torch.zeros(2, 3000), 20)
-    assert K.launch_counts() == {"pq_adc.gathered": 0, "pq_adc.dense": 0, "topk_select.rank": 0,
+    assert K.launch_counts() == {"pq_adc.gathered": 0, "pq_adc.gathered_l2": 0,
+                                 "pq_adc.dense": 0, "topk_select.rank": 0,
                                  "topk_select.long": 0, "topk_select.iter": 0,
                                  "flat_l2.dense": 0, "flat_l2.dense_bf16": 0,
                                  "flat_l2.gathered": 0, "pq_encode": 0}
+
+
+# -- form choice of the two kernels every beam round launches ----------------
+
+
+@pytest.mark.parametrize("C,V,M,Kc,gathered,form", [
+    (164, 2, 96, 256, True, "gathered"),  # a beam round after re-quantization
+    (164, 1, 96, 256, True, "gathered"),  # a beam round before it
+    (1, 2, 96, 256, True, "gathered_l2"),  # the search's start node
+    (41, 2, 96, 256, True, "gathered_l2"),  # the build's beam (W=1)
+    (41, 1, 96, 256, True, "gathered_l2"),
+    (63, 2, 96, 256, True, "gathered_l2"),
+    (64, 2, 96, 256, True, "gathered"),
+    (164, 3, 96, 256, True, "gathered_l2"),  # a table past one block's shared memory
+    (164, 2, 192, 256, True, "gathered_l2"),
+    (164, 5, 96, 256, True, "gathered_l2"),
+    (164, 2, 8, 16, True, "gathered"),
+    (200, 2, 37, 256, True, "gathered"),
+    (164, 2, 96, 6, True, "gathered_l2"),  # K % 4: rows of the table not 16-byte multiples
+    (100_000, 2, 96, 256, False, "dense"),  # Q-Flat
+    (100_000, 3, 96, 256, False, "gathered_l2"),  # its table does not fit a block
+    (5, 2, 96, 256, False, "gathered_l2"),  # adc_distance_versioned on a few rows
+])
+def test_adc_form(C, V, M, Kc, gathered, form):
+    """pq_adc's form by shape alone; a shape sent to the staged form fits a
+    block's shared memory, computed from V, M and K."""
+    assert adc_ops.adc_form(C, V, M, Kc, gathered) == form
+    if form == "gathered":
+        assert adc_ops.staged_smem_bytes(V, M, Kc) <= 232_448
+    # the path's own calls: the start node and adc_distance_versioned's few rows
+    assert adc_ops.adc_form(1, V, M, Kc, True) == "gathered_l2"
+    assert adc_ops.adc_form(1, V, M, Kc, False) == "gathered_l2"
+
+
+def test_adc_staged_smem_bound():
+    """No shape that adc_form sends to the staged form exceeds a block's
+    232 448 bytes; at M=96, K=256 one block stages up to V=2 schemas, and
+    larger tables take the l2 form."""
+    for V in range(1, 7):
+        for M in (1, 2, 8, 16, 37, 64, 96, 128, 192, 384):
+            for Kc in (4, 16, 64, 256):
+                if adc_ops.adc_form(10_000, V, M, Kc, True) == "gathered":
+                    assert adc_ops.staged_smem_bytes(V, M, Kc) <= adc_ops.SMEM_PER_BLOCK
+    forms = [adc_ops.adc_form(164, V, 96, 256, True) for V in range(1, 6)]
+    assert forms == ["gathered", "gathered", "gathered_l2", "gathered_l2", "gathered_l2"]
+
+
+def _staged_chunks(M, max_chunks=8):
+    """kernel.cu's partition of a staged block's subspaces into chunks."""
+    Mc = 4 * -(-M // (4 * max_chunks))
+    chunks = -(-M // Mc) if Mc else 0
+    return [(j * Mc, min(M, (j + 1) * Mc)) for j in range(chunks)]
+
+
+def test_adc_staged_chunks_cover():
+    """The chunks of a query's table cover [0, M) once, in order, at most 8
+    of them, each a multiple of 4 subspaces but the last."""
+    for M in range(1, 200):
+        ch = _staged_chunks(M)
+        assert [m for lo, hi in ch for m in range(lo, hi)] == list(range(M))
+        assert len(ch) <= 8
+        assert all((hi - lo) % 4 == 0 for lo, hi in ch[:-1])
+
+
+def _staged_sum(terms, lanes=2):
+    """The staged form's order of addition, emulated in f32: each of a
+    candidate's lanes sums ceil(M/lanes) subspaces in order, and lane 0's sum
+    takes lane 1's."""
+    C, M = terms.shape
+    mh = -(-M // lanes)
+    total = None
+    for m0 in range(0, M, mh):
+        acc = np.zeros(C, np.float32)
+        for m in range(m0, min(M, m0 + mh)):
+            acc = (acc + terms[:, m]).astype(np.float32)
+        total = acc if total is None else (total + acc).astype(np.float32)
+    return total
+
+
+@pytest.mark.parametrize("V,M,Kc", [(2, 96, 256), (1, 37, 16), (2, 8, 16), (2, 3, 16)])
+def test_adc_staged_sum_order(V, M, Kc):
+    """The staged form's arithmetic, emulated: each candidate's terms summed
+    in f32 in the order the kernel adds them (per lane of the candidate). It
+    matches repro.core.pq.adc_distance_versioned within 1e-5, as the plain
+    version does."""
+    rng = np.random.RandomState(V * 1000 + M)
+    B, C, N = 3, 40, 90
+    luts = rng.randn(B, V, M, Kc).astype(np.float32)
+    codes = rng.randint(0, Kc, (N, M)).astype(np.uint8)
+    versions = rng.randint(0, V, (N,)).astype(np.uint8)
+    ids = rng.randint(0, N, (B, C)).astype(np.int32)
+    for b in range(B):
+        r = ids[b]
+        v = np.minimum(versions[r], V - 1)
+        terms = luts[b][v[:, None], np.arange(M)[None], codes[r]]  # (C, M)
+        got = _staged_sum(terms)
+        want = np.asarray(rpq.adc_distance_versioned(
+            jnp.asarray(luts[b]), jnp.asarray(codes[r]), jnp.asarray(versions[r])))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_adc_distance_versioned_matches_reference():
+    """The port's adc_distance_versioned (the call adc_form sends to the l2
+    form on the card when the rows are few) against the reference's."""
+    rng = np.random.RandomState(5)
+    luts = rng.randn(2, 8, 256).astype(np.float32)
+    codes = rng.randint(0, 256, (5, 8)).astype(np.uint8)
+    versions = rng.randint(0, 2, (5,)).astype(np.uint8)
+    got = tpq.adc_distance_versioned(t(luts), t(codes), t(versions)).numpy()
+    want = np.asarray(rpq.adc_distance_versioned(jnp.asarray(luts), jnp.asarray(codes),
+                                                 jnp.asarray(versions)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert adc_ops.adc_form(5, 2, 8, 256, False) == "gathered_l2"
+
+
+@pytest.mark.parametrize("B,N,L,form", [
+    (128, 264, 100, "rank"),  # beam merge
+    (128, 100, 4, "rank"),  # frontier pick
+    (128, 50, 10, "rank"),  # rerank cut
+    (100, 316, 32, "rank"),  # prune cut
+    (128, RANK_MAX_N, 10, "rank"),
+    (128, RANK_MAX_N + 1, 10, "long"),
+    (128, 100_000, 50, "long"),
+    (128, 100_000, LONG_MAX_L + 1, "iter"),
+])
+def test_topk_form(B, N, L, form):
+    assert topk_form(N, L) == form
+
+
+def _key(x, i):
+    """kernel.cu's make_key: order-preserving value bits << 32 | position."""
+    x = np.float32(0.0) if x == 0 else np.float32(x)
+    if np.isnan(x):
+        u = 0xFFFFFFFF
+    else:
+        bits = int(np.array([x], np.float32).view(np.uint32)[0])
+        u = (~bits & 0xFFFFFFFF) if bits & 0x80000000 else (bits | 0x80000000)
+    return (u << 32) | i
+
+
+def _bitonic(keys):
+    """The rank form's network as kernel.cu runs it on P keys: each stage
+    pairs i with i ^ j, and the lower of a pair keeps the min when
+    (i & k) == 0 (whichever thread holds i)."""
+    v = list(keys)
+    P = len(v)
+    k = 2
+    while k <= P:
+        j = k // 2
+        while j > 0:
+            nxt = list(v)
+            for i in range(P):
+                o = v[i ^ j]
+                keep_min = ((i & j) == 0) == ((i & k) == 0)
+                nxt[i] = min(v[i], o) if keep_min else max(v[i], o)
+            v = nxt
+            j //= 2
+        k *= 2
+    return v
+
+
+@pytest.mark.parametrize("N", [1, 2, 33, 50, 100, 264, 316])
+def test_topk_sort_network(N):
+    """Emulated, the rank form's network on tie-heavy rows with +inf, NaN,
+    -0.0 and padding orders the keys as the stable sort does, so its first L
+    are NumPy's stable order and the reference's answer for every L
+    (positions of +-inf and NaN marked -1, as the reference marks them). The
+    keys tie -0.0 with +0.0, as NumPy does; the reference orders -0.0 first,
+    so it gets the row with -0.0 written as +0.0, which has the same keys."""
+    rng = np.random.RandomState(N)
+    row = rng.randint(0, 6, N).astype(np.float32)
+    row[rng.rand(N) < 0.2] = np.inf
+    row[rng.rand(N) < 0.1] = np.nan
+    row[rng.rand(N) < 0.1] = -0.0
+    row[rng.rand(N) < 0.05] = -np.inf
+    P = max(32, 1 << (N - 1).bit_length())
+    keys = [_key(x, i) for i, x in enumerate(row)] + [2 ** 64 - 1] * (P - N)
+    got = np.array([k & 0xFFFFFFFF for k in _bitonic(keys)[:N]])
+    np.testing.assert_array_equal(got, np.argsort(row, kind="stable"))
+    pos = np.where(row == 0, np.float32(0.0), row)
+    vals, want = topk_select_ref(jnp.asarray(pos[None]), L=N)
+    np.testing.assert_array_equal(np.where(np.isfinite(pos[got]), got, -1), np.asarray(want[0]))
+    np.testing.assert_array_equal(pos[got], np.asarray(vals[0]))
