@@ -12,13 +12,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
  3. kernels: each kernel form against its plain PyTorch version on the card,
     at the main path's shapes and at edge shapes, with the tests' tolerances
     (flat_l2 also against float64, within a limit that rejects bf16 or TF32
-    inputs). Times, each as device time per call (torch.profiler's self
-    device time of the kernels the calls launch): the kernel, its plain
-    version and (where one exists) a single PyTorch call computing the same
-    function; beside them the kernel's host time per call (CUDA events
-    around back-to-back calls), which the host-bound main path pays. The
-    launch floor: the device time of one trivial PyTorch kernel
-    (x.add_(1) on 128 elements), which no single launch beats.
+    inputs; every pq_adc edge also through the l2 form). Times, each as
+    device time per call (torch.profiler's self device time of the kernels
+    the calls launch, from a window holding exactly the kernels the calls
+    launched): the kernel, its plain version and (where one exists) a single
+    PyTorch call computing the same function; beside them the kernel's host
+    time per call (CUDA events around back-to-back calls), which the
+    host-bound main path pays. pq_encode is timed at each row count the
+    main path gives it (100, 1 000, 25 000). The launch floor: the device
+    time of one trivial PyTorch kernel (x.add_(1) on 128 elements), which no
+    single launch beats.
  4. main path: a DiskANNIndex at the paper configuration's widths
     (768-D, M=96, R=32, L=100, W=4, k=10) built through ``insert`` on
     synthetic clustered low-rank data made from ``--seed``; 8 batches of 128
@@ -29,7 +32,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
  5. the card against the CPU: the built state (``snapshot``) restored into a
     ``device="cpu"`` index, one batch searched there with the plain versions.
  6. every kernel's launch counter (each form apart) rose during phase 4,
-    but for the forms in OFF_PATH, which are named with the reason.
+    but for the forms in OFF_PATH, which are named with the reason;
+    pq_encode's launches are also counted by rows, beside each timed shape.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -78,7 +82,7 @@ def check(cond: bool, msg: str) -> None:
 
 
 # the port's CUDA kernels, by the names the profiler gives them
-OUR_KERNELS = ("adc_staged_kernel", "adc_gathered_kernel", "adc_dense_smem_kernel",
+OUR_KERNELS = ("adc_staged_kernel", "adc_l2_kernel", "adc_dense_smem_kernel",
                "topk_bitonic_kernel",
                "topk_chunk_kernel", "topk_merge_kernel", "topk_iter_kernel",
                "flat_dense_3xtf32_kernel", "flat_dense_bf16_kernel", "flat_gathered_kernel",
@@ -135,46 +139,77 @@ def graph_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int, kernels: tuple = ()) -> float:
-    """Device time per call: the self device time of the kernels that iters
-    warmed calls launch (those whose names contain one of ``kernels``, or
-    all), summed under torch.profiler, over iters. A window that recorded
-    device kernels but none named in ``kernels`` is an error: a kernel
-    missing from the filter must not be timed as something else. A window
-    that recorded fewer of them than calls (the profiler now and then loses
-    a window's device events) is taken again, at most PROFILE_TRIES times;
-    after that, one CUDA graph of the calls is timed with events, and a note
-    says so."""
+def window_whole(named: int, iters: int, per_call: int) -> bool:
+    """Whether a profiler window of iters calls kept every kernel they
+    launched: exactly iters x per_call named kernel events. The profiler now
+    and then loses a window's device events; a window with fewer is
+    refused, and one with more ran something else."""
+    return per_call >= 1 and named == iters * per_call
+
+
+def _window(torch, fn, iters: int, kernels: tuple) -> tuple[int, float]:
+    """One profiler window of iters calls: the device kernel events whose
+    names contain one of ``kernels`` (or all), and their self device us. A
+    window that recorded device kernels but none named in ``kernels`` is an
+    error: a kernel missing from the filter must not be timed as something
+    else."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    found = [e for e in device if not kernels or any(k in e.key for k in kernels)]
+    check(not device or bool(found),
+          f"device kernels {sorted({e.key[:60] for e in device})} but none named in {kernels}")
+    return sum(e.count for e in found), sum(_device_us(e) for e in found)
+
+
+def kernels_per_call(torch, fn, kernels: tuple = ()) -> int:
+    """The named kernels one call launches: single calls profiled until two
+    windows that recorded any agree."""
+    seen = set()
+    for _ in range(2 * PROFILE_TRIES):
+        n, _ = _window(torch, fn, 1, kernels)
+        if n > 0 and n in seen:
+            return n
+        seen.add(n)
+    raise AssertionError(f"kernels per call not settled in {2 * PROFILE_TRIES} windows: {seen}")
+
+
+def device_ms(torch, fn, iters: int, kernels: tuple = (), per_call: int | None = None) -> float:
+    """Device time per call: the self device time of the kernels that iters
+    warmed calls launch (those whose names contain one of ``kernels``, or
+    all), summed under torch.profiler, over iters. ``per_call`` is the named
+    kernels one call launches (given by the caller for the port's own forms,
+    else learnt by kernels_per_call); a window is taken only when it holds
+    all of them (window_whole), else taken again, at most PROFILE_TRIES
+    times; after that one CUDA graph of the calls is timed with events, and
+    a note says so."""
     # each window is a profile of its own: the note that events do not carry over is moot
     warnings.filterwarnings("ignore", message=".*Profiler clears events")
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    if per_call is None:
+        per_call = kernels_per_call(torch, fn, kernels)
     for _ in range(PROFILE_TRIES):
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        found = [e for e in device if not kernels or any(k in e.key for k in kernels)]
-        check(not device or bool(found),
-              f"device kernels {sorted({e.key[:60] for e in device})} but none named in {kernels}")
-        us = sum(_device_us(e) for e in found)
-        if us > 0 and sum(e.count for e in found) >= iters:
+        named, us = _window(torch, fn, iters, kernels)
+        if us > 0 and window_whole(named, iters, per_call):
             return us / iters / 1e3
-    print(f"note: the profiler lost device events in {PROFILE_TRIES} windows; "
-          "timing one CUDA graph of the calls instead", flush=True)
+    print(f"note: no whole profiler window of {iters} x {per_call} kernels in {PROFILE_TRIES} "
+          "tries; timing one CUDA graph of the calls instead", flush=True)
     return graph_ms(torch, fn, iters)
 
 
-def timed(torch, kernel, plain, library, iters: int) -> dict:
+def timed(torch, kernel, plain, library, iters: int, per_call: int = 1) -> dict:
     """A kernel's device and host times, its plain version's and a library
     call's (None where no single PyTorch call computes the same function),
-    all as device time per call."""
-    return dict(ms=device_ms(torch, kernel, iters, OUR_KERNELS),
+    all as device time per call. ``per_call``: the port's kernels one call
+    of ``kernel`` launches; the plain and library calls' are learnt."""
+    return dict(ms=device_ms(torch, kernel, iters, OUR_KERNELS, per_call),
                 host_ms_per_call=host_ms(torch, kernel, iters),
                 plain_ms=device_ms(torch, plain, max(iters // 4, 3)),
                 library_ms=None if library is None else device_ms(torch, library, iters))
@@ -213,6 +248,29 @@ def round_tf32(torch, t):
     return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
+def encode_same(torch, K, xe, cbe, what: str) -> tuple[float, int, int]:
+    """pq_encode's kernel against its plain version: at most 0.1 % of codes
+    differ, each a near-tie within 1e-5 relative (the two centroids' squared
+    distances in float64). Returns (the largest gap of a differing code,
+    codes differing, codes)."""
+    from repro_torch.kernels.pq_encode.ref import pq_encode_ref
+
+    c1, c2 = K.pq_encode(xe, cbe), pq_encode_ref(xe, cbe)
+    bad = c1 != c2
+    gap = 0.0
+    if bad.any():
+        nn, mm = bad.nonzero(as_tuple=True)
+        sub = xe.double().reshape(xe.shape[0], cbe.shape[0], -1)[nn, mm]  # (n_bad, dsub)
+        s1 = ((sub - cbe.double()[mm, c1[nn, mm].long()]) ** 2).sum(-1)
+        s2 = ((sub - cbe.double()[mm, c2[nn, mm].long()]) ** 2).sum(-1)
+        rel = float(((s1 - s2).abs() / s2.abs().clamp_min(1e-12)).max())
+        gap = float((s1 - s2).abs().max())
+        check(rel <= 1e-5, f"pq_encode {what}: a differing code is no near-tie (rel {rel})")
+    n_bad = int(bad.sum())
+    check(n_bad <= 1e-3 * bad.numel(), f"pq_encode {what}: {n_bad}/{bad.numel()} codes differ")
+    return gap, n_bad, bad.numel()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -222,7 +280,8 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
     """One entry per kernel (the keys of K.launch_counts())."""
     from repro_torch.kernels.flat_l2.ref import flat_l2_gathered_ref, flat_l2_ref
     from repro_torch.kernels.pq_adc.ref import pq_adc_ref
-    from repro_torch.kernels.pq_adc.ops import adc_form
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pq_adc.ops import FORMS as ADC_FORMS, adc_form
     from repro_torch.kernels.pq_encode.ref import pq_encode_ref
     from repro_torch.kernels.topk_select.ops import LONG_MAX_L, RANK_MAX_N, long_chunks, topk_form
     from repro_torch.kernels.topk_select.ref import topk_select_ref
@@ -233,10 +292,21 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
     out = {}
 
     # -- pq_adc: gathered/versioned (beam round) and dense (Q-Flat) --------
-    def adc_same(luts, codes, versions, ids, what):
-        """The kernel against the plain version where ids are rows; +inf where
-        they are not (< 0 or >= N). Returns the largest error."""
-        got = K.pq_adc(luts, codes, versions, ids)
+    def adc_l2(luts, codes, versions, ids):
+        """The l2 form's launcher called directly, whatever adc_form would
+        pick: no launch counted (a comparison, not the main path)."""
+        B_, V_, M_, K_ = luts.shape
+        out = torch.empty(ids.shape, dtype=torch.float32, device=luts.device)
+        _build.launch("repro_pq_adc", luts.data_ptr(), codes.data_ptr(), versions.data_ptr(),
+                      ids.data_ptr(), out.data_ptr(), B_, V_, M_, K_, codes.shape[0],
+                      ids.shape[1], ADC_FORMS["gathered_l2"])
+        return out
+
+    def adc_same(luts, codes, versions, ids, what, l2=False):
+        """The kernel (adc_form's pick, or with ``l2`` the l2 form) against
+        the plain version where ids are rows; +inf where they are not (< 0 or
+        >= N). Returns the largest error."""
+        got = (adc_l2 if l2 and luts.is_cuda else K.pq_adc)(luts, codes, versions, ids)
         ok = (ids >= 0) & (ids < codes.shape[0])
         want = pq_adc_ref(luts, codes, versions, torch.where(ok, ids, torch.zeros_like(ids)))
         err = float((got - want).abs()[ok].max()) if bool(ok.any()) else 0.0
@@ -254,6 +324,7 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
     check(adc_form(C, V, M, Kc, True) == "gathered", "a beam round does not take the staged form")
     check(adc_form(1, V, M, Kc, True) == "gathered_l2", "the start node does not take the l2 form")
     err_g = adc_same(luts, codes, versions, ids, "gathered")
+    err_gl = adc_same(luts, codes, versions, ids, "search round (l2)", l2=True)
     start = torch.randint(0, N, (B, 1), generator=g, device=dev, dtype=torch.int32)
     err_s = adc_same(luts, codes, versions, start, "start node")
     got_d = K.pq_adc(luts, codes, versions)
@@ -282,11 +353,23 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
             ei[:, ::3] = n_rows + torch.arange(ei[:, ::3].numel(), device=dev,
                                                dtype=torch.int32).reshape(nb, -1)
         form = adc_form(nc, nv, nm, nk, True)
+        # each case through the form adc_form gives it, and through the l2 form
         edges.append(dict(case=what, form=form,
-                          max_abs_err=adc_same(el, ec, ev, ei, f"{what} ({form})")))
+                          max_abs_err=adc_same(el, ec, ev, ei, f"{what} ({form})"),
+                          l2_max_abs_err=adc_same(el, ec, ev, ei, f"{what} (l2)", l2=True)))
     check(edges[-1]["form"] == "gathered_l2", "an oversized table did not take the l2 form")
+    # without ids (rows r = c): a dense call on fewer rows than STAGED_MIN_ROWS
+    check(adc_form(50, V, M, Kc, False) == "gathered_l2", "50 dense rows do not take the l2 form")
+    got_n = K.pq_adc(luts[:8], codes[:50], versions[:50])
+    want_n = pq_adc_ref(luts[:8], codes[:50], versions[:50])
+    err_n = float((got_n - want_n).abs().max())
+    check(torch.allclose(got_n, want_n, rtol=1e-5, atol=1e-5),
+          f"pq_adc l2 without ids: err {err_n}")
+    edges.append(dict(case="no ids, N=50 (rows r = c)", form="gathered_l2", max_abs_err=err_n,
+                      l2_max_abs_err=err_n))
     print("pq_adc gathered edges: " + "; ".join(f"{e['case']} -> {e['form']} err "
-                                                f"{e['max_abs_err']:.2e}" for e in edges),
+                                                f"{e['max_abs_err']:.2e}, l2 "
+                                                f"{e['l2_max_abs_err']:.2e}" for e in edges),
           flush=True)
 
     def gathered_bound(codes, versions, ids):
@@ -326,7 +409,8 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
                       **timed(torch, lambda: K.pq_adc(luts_b, codes, one, ids_b),
                               lambda: pq_adc_ref(luts_b, codes, one, ids_b), None, 200))
     out["pq_adc.gathered_l2"] = dict(
-        max_abs_err=max(err_b2, err_b1), start_node_max_abs_err=err_s, bound_ms=lb,
+        max_abs_err=max(err_b2, err_b1), start_node_max_abs_err=err_s,
+        search_round_max_abs_err=err_gl, bound_ms=lb,
         bound_by=lby, shape=f"build round, two schemas B={Bb} C={Cb} V={V} M={M} K={Kc} N={N}",
         forms=[one_schema],
         **timed(torch, lambda: K.pq_adc(luts_b, codes, versions, ids_b),
@@ -369,7 +453,8 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
             max_abs_err=0.0,  # values equal bit for bit, checked above
             **timed(torch, lambda: K.topk_select(d, L, mark),
                     lambda: topk_select_ref(d, L, mark),
-                    lambda: torch.topk(d, L, dim=1, largest=False), it)))
+                    lambda: torch.topk(d, L, dim=1, largest=False), it,
+                    per_call=2 if form == "long" else 1)))  # long: chunk and merge
         del d
     # the rank form at its edges: L = 1 and L = N, tie-heavy rows and rows
     # all +inf, with NaN, with +-0.0 and -inf, both ways of marking
@@ -494,31 +579,36 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
         **timed(torch, lambda: K.flat_l2(q16, x16), lambda: flat_l2_ref(q16, x16), None, 5))
     del x, got_d, q16, x16
 
-    # -- pq_encode: an insert mini-batch and the k-means sample ------------
+    # -- pq_encode: an insert mini-batch, the bootstrap, the refinement ---
+    # edges: each dsub the kernel templates or stages (2, 4, 8; 3, 6, 16,
+    # 32), K below 256, one row
+    edges = []
+    for what, n, nm, nds, nk in (("dsub=2", 1000, 32, 2, 256), ("dsub=3", 1000, 16, 3, 256),
+                                 ("dsub=4", 1000, 16, 4, 256), ("dsub=6", 1000, 16, 6, 256),
+                                 ("dsub=16", 1000, 8, 16, 256), ("dsub=32", 1000, 4, 32, 256),
+                                 ("K=16", 1000, 96, 8, 16), ("K=64", 1000, 96, 8, 64),
+                                 ("N=1", 1, 96, 8, 256)):
+        gap, n_bad, n_all = encode_same(torch, K, torch.randn(n, nm * nds, generator=g, device=dev),
+                                        torch.randn(nm, nk, nds, generator=g, device=dev), what)
+        edges.append(dict(case=what, max_abs_err=gap, mismatches=n_bad, compared=n_all))
+    print("pq_encode edges: " + "; ".join(f"{e['case']} {e['mismatches']}/{e['compared']} "
+                                          f"differ (gap {e['max_abs_err']:.2e})" for e in edges),
+          flush=True)
     cb = torch.randn(M, Kc, dsub, generator=g, device=dev)
-    worst, n_bad, n_all = 0.0, 0, 0
-    for n in (100, 25_000):
+    shapes = []
+    for n in (100, 1000, 25_000):  # an insert mini-batch, the bootstrap, the refinement
         xe = torch.randn(n, D, generator=g, device=dev)
-        c1 = K.pq_encode(xe, cb)
-        c2 = pq_encode_ref(xe, cb)
-        bad = c1 != c2
-        n_bad += int(bad.sum())
-        n_all += bad.numel()
-        if bad.any():
-            nn, mm = bad.nonzero(as_tuple=True)
-            sub = xe.double().reshape(n, M, dsub)[nn, mm]  # (n_bad, dsub)
-            s1 = ((sub - cb.double()[mm, c1[nn, mm].long()]) ** 2).sum(-1)
-            s2 = ((sub - cb.double()[mm, c2[nn, mm].long()]) ** 2).sum(-1)
-            rel = float(((s1 - s2).abs() / s2.abs().clamp_min(1e-12)).max())
-            worst = max(worst, float((s1 - s2).abs().max()))
-            check(rel <= 1e-5, f"pq_encode mismatch not a near-tie (rel {rel})")
-    check(n_bad <= 1e-3 * n_all, f"pq_encode: {n_bad}/{n_all} codes differ")
-    xe = torch.randn(100, D, generator=g, device=dev)
-    eb, eby = bound(100 * D * 4 + M * Kc * dsub * 4 + 100 * M, 100 * M * Kc * 2 * dsub)
-    out["pq_encode"] = dict(
-        max_abs_err=worst, mismatches=n_bad, compared=n_all,
-        bound_ms=eb, bound_by=eby, shape=f"N=100 D={D} M={M} K={Kc}",
-        **timed(torch, lambda: K.pq_encode(xe, cb), lambda: pq_encode_ref(xe, cb), None, 200))
+        gap, n_bad, n_all = encode_same(torch, K, xe, cb, f"N={n}")
+        eb, eby = bound(n * D * 4 + M * Kc * dsub * 4 + n * M, n * M * Kc * 2 * dsub)
+        shapes.append(dict(
+            form=f"N={n}", rows=n, max_abs_err=gap, mismatches=n_bad, compared=n_all,
+            bound_ms=eb, bound_by=eby, shape=f"N={n} D={D} M={M} K={Kc}",
+            **timed(torch, lambda: K.pq_encode(xe, cb), lambda: pq_encode_ref(xe, cb), None,
+                    200 if n < 10_000 else 20)))
+        del xe
+    main, *more = shapes
+    out["pq_encode"] = dict(main, max_abs_err=max(e["max_abs_err"] for e in shapes + edges),
+                            edges=edges, forms=more)
     check(set(out) == set(K.launch_counts()), "a kernel was not checked")
     return out
 
@@ -602,6 +692,7 @@ def main_path(torch, np, K, dev, args) -> dict:
         filt[mode] = dict(seconds=float(np.median(secs[1:])), first_seconds=secs[0],
                           plan=st.plan, ids=ids, mask=mask)
     counts = K.launch_counts()  # the main path ends here
+    encode_rows = K.encode_launches_by_rows()
 
     # recall against exact ground truth on the card (flat_l2 + topk_select)
     vec_t = torch.from_numpy(idx.pv.vectors).to(dev)
@@ -637,6 +728,7 @@ def main_path(torch, np, K, dev, args) -> dict:
         cmps=float(np.mean([s.cmps for s in stats])),
         expansions=float(np.mean([s.expansions for s in stats])),
         launches=counts, launches_per_query_batch=per_batch, version_share=version_share,
+        pq_encode_launches_by_rows=encode_rows,
         filtered={m: dict(seconds=f["seconds"], first_seconds=f["first_seconds"],
                           recall_at_10=f["recall"]) for m, f in filt.items()},
     )
@@ -680,12 +772,18 @@ def profile(torch, np, idx, queries, draw, out_dir: Path) -> dict:
             ka.table(sort_by="self_device_time_total", row_limit=40))
         kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
         busy = sum(_device_us(e) for e in kernels)
-        ours = sum(_device_us(e) for e in kernels if any(k in e.key for k in OUR_KERNELS))
+        ours = {}  # the port's kernels by name: (device ms, launches)
+        for e in kernels:
+            for k in OUR_KERNELS:
+                if k in e.key:
+                    ms, n = ours.get(k, (0.0, 0))
+                    ours[k] = (ms + _device_us(e) / 1e3, n + e.count)
         top = sorted(kernels, key=_device_us, reverse=True)[:6]
         summary[name] = dict(
             wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
             busy_share=busy / wall_us if busy else "not measured",
-            port_kernels_ms=ours / 1e3, device_launches=sum(e.count for e in kernels),
+            port_kernels_ms=sum(ms for ms, _ in ours.values()), port_kernels=ours,
+            device_launches=sum(e.count for e in kernels),
             top=[(e.key[:60], _device_us(e) / 1e3, e.count) for e in top])
         print(f"profile {name}: " + json.dumps(summary[name]), flush=True)
     return summary
@@ -785,6 +883,9 @@ def run(args) -> int:
                      launches=counts[name],
                      launches_per_query_batch=path["launches_per_query_batch"][name])
         entry.update(k)
+        if name == "pq_encode":  # each timed shape's launches on the main path
+            for f in [entry] + entry["forms"]:
+                f["launches_at_rows"] = path["pq_encode_launches_by_rows"].get(f["rows"], 0)
         line["kernels"].append(entry)
     prof = profile(torch, np, idx, q, draw, Path(args.out).parent) if args.profile else None
     if args.out:

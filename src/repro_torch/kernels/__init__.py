@@ -37,6 +37,13 @@ def launch_counts() -> dict[str, int]:
     return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
+def encode_launches_by_rows() -> dict[int, int]:
+    """pq_encode's launches since the last reset, by rows encoded: an insert
+    mini-batch, the bootstrap and the refinement differ in time."""
+    return dict(pq_encode.launches_by_rows)
+
+
 def reset_launch_counts() -> None:
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
+    pq_encode.launches_by_rows = {}

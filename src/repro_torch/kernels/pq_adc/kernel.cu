@@ -34,11 +34,18 @@
 //    trips for ids, versions and code bytes (PERF.md).
 //  * l2 (fewer than STAGED_MIN_ROWS rows per query, such as the build's
 //    rounds at W=1, C=41, and the start node, C=1, or a table too large for
-//    one block, such as M=192 or three schemas at K=256): one warp per
-//    (query, candidate); the lanes stride over the M subspaces, read the
-//    code row as one coalesced run and each table entry from global memory
-//    (L2), and end in a shuffle reduction. With ids == NULL the rows are
-//    r = c.
+//    one block, such as M=192 or three schemas at K=256): lookups straight
+//    from global memory (L2). The build's round (B=100, C=41) needs about
+//    1.7 MB, but its 394 000 lookups are random 4-byte reads, and its time
+//    follows the 128-byte lines each warp load touches (PERF.md): a warp
+//    whose lanes take different subspaces touches 32 lines a load. So a
+//    block takes one query and 32 of its candidates, one a lane, and splits
+//    the subspaces over its 4 warps (adc_l2_kernel): a warp's load reads
+//    one subspace for 32 candidates of one query, inside that subspace's V
+//    table rows (8 lines each at K=256). A lane's chain is three round
+//    trips: the id; the row's version with its code units (8-byte words at
+//    M=96), issued together; then 24 table loads in flight. With ids ==
+//    NULL the rows are r = c.
 //  * dense (Q-Flat over all N rows): every row is looked up in every table,
 //    so one query's table is staged once in dynamic shared memory and a grid
 //    of blocks per query sweeps the rows, one thread per row.
@@ -244,31 +251,93 @@ __global__ void __launch_bounds__(kLanes* kStagedTile)
   }
 }
 
-__global__ void adc_gathered_kernel(const float* __restrict__ luts,
-                                    const uint8_t* __restrict__ codes,
-                                    const uint8_t* __restrict__ versions,
-                                    const int32_t* __restrict__ ids,
-                                    float* __restrict__ out,
-                                    int V, int M, int K, int N, int C) {
-  const int warps = blockDim.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int c = blockIdx.x * warps + threadIdx.x / 32;
+// Loads through the read-only path whose order the compiler keeps (asm
+// volatile): all of a lane's code units are issued before its first table
+// load, which would otherwise sink each word's load to its lookups and
+// chain one round trip per word.
+__device__ __forceinline__ uint32_t ld_u8(const uint8_t* p) {
+  uint32_t v;
+  asm volatile("ld.global.nc.u8 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint2 ld_u64(const uint8_t* p) {
+  uint2 v;
+  asm volatile("ld.global.nc.v2.u32 {%0, %1}, [%2];" : "=r"(v.x), "=r"(v.y) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float ld_f32(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// The l2 form, by query: block (x, b) takes query b's candidates
+// 32x..32x+31, one a lane, and its kQGroups warps split the subspaces, so a
+// warp's table load looks up one subspace for 32 candidates of one query.
+// kUnit is the code unit a lane loads: 8 bytes when M and the codes'
+// address allow it, else 1. Order of the sum (tests/test_torch_kernels.py
+// emulates it): warp g adds its subspaces [g*Mg, (g+1)*Mg) in order, Mg =
+// kUnit * ceil(M / kUnit / kQGroups), and warp 0 adds the partial sums in
+// warp order, ((p0 + p1) + p2) + p3.
+constexpr int kQGroups = 4;                  // warps of a block, each a share of the subspaces
+constexpr int kQBatch = 24;                  // table loads a lane has in flight
+
+template <int kUnit>
+__global__ void __launch_bounds__(32 * kQGroups)
+    adc_l2_kernel(const float* __restrict__ luts, const uint8_t* __restrict__ codes,
+                  const uint8_t* __restrict__ versions, const int32_t* __restrict__ ids,
+                  float* __restrict__ out, int V, int M, int K, int N, int C) {
+  __shared__ float part[kQGroups][32];
+  const int lane = threadIdx.x % 32, g = threadIdx.x / 32;
   const int b = blockIdx.y;
-  if (c >= C) return;
-  const int64_t r = ids ? (int64_t)ids[(int64_t)b * C + c] : (int64_t)c;
-  if (r < 0 || r >= N) {
-    if (lane == 0) out[(int64_t)b * C + c] = CUDART_INF_F;
-    return;
+  const int c = blockIdx.x * 32 + lane;
+  const bool mine = c < C;
+  int r = -1;
+  if (mine) {
+    const int id = ids ? ids[(int64_t)b * C + c] : c;
+    r = id >= 0 && id < N ? id : -1;
   }
-  int v = versions[r];
-  v = v < V ? v : V - 1;
-  const float* lut = luts + ((int64_t)b * V + v) * M * K;
-  const uint8_t* row = codes + r * M;
+  const int Mg = kUnit * ((M / kUnit + kQGroups - 1) / kQGroups);  // a multiple of the unit
+  const int m0 = min(M, g * Mg), m1 = min(M, m0 + Mg);
   float acc = 0.f;
-  for (int m = lane; m < M; m += 32) acc += lut[m * K + row[m]];
+  if (r >= 0) {
+    const uint8_t* row = codes + (int64_t)r * M;
+    const uint32_t vr = ld_u8(versions + r);
+    for (int mb = m0; mb < m1; mb += kQBatch) {
+      constexpr int kUnits = kQBatch / kUnit;
+      uint32_t u[kUnit == 8 ? kQBatch / 4 : kQBatch];  // code bytes, 4 a word when kUnit = 8
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane == 0) out[(int64_t)b * C + c] = acc;
+      for (int t = 0; t < kUnits; ++t) {
+        const bool in = mb + kUnit * t < m1;
+        if constexpr (kUnit == 8) {
+          const uint2 w = in ? ld_u64(row + mb + 8 * t) : make_uint2(0u, 0u);
+          u[2 * t] = w.x;
+          u[2 * t + 1] = w.y;
+        } else {
+          u[t] = in ? ld_u8(row + mb + t) : 0u;
+        }
+      }
+      const int v = (int)vr < V ? (int)vr : V - 1;
+      const float* lut = luts + (((int64_t)b * V + v) * M + mb) * K;
+      float e[kQBatch];
+#pragma unroll
+      for (int t = 0; t < kQBatch; ++t) {
+        const uint32_t code = kUnit == 8 ? (u[t / 4] >> (8 * (t % 4))) & 0xffu : u[t];
+        e[t] = mb + t < m1 ? ld_f32(lut + t * K + code) : 0.f;
+      }
+#pragma unroll
+      for (int t = 0; t < kQBatch; ++t)
+        if (mb + t < m1) acc += e[t];
+    }
+  }
+  part[g][lane] = acc;
+  __syncthreads();
+  if (g == 0 && mine) {
+    float s = part[0][lane];
+#pragma unroll
+    for (int h = 1; h < kQGroups; ++h) s += part[h][lane];
+    out[(int64_t)b * C + c] = r >= 0 ? s : CUDART_INF_F;
+  }
 }
 
 __global__ void adc_dense_smem_kernel(const float* __restrict__ luts,
@@ -347,10 +416,14 @@ extern "C" int repro_pq_adc(const float* luts, const uint8_t* codes,
                             float* out, int B, int V, int M, int K, int N, int C, int form,
                             cudaStream_t stream) {
   if (form == kFormL2) {
-    const int threads = 256, warps = threads / 32;
-    dim3 grid((C + warps - 1) / warps, B);
-    adc_gathered_kernel<<<grid, threads, 0, stream>>>(luts, codes, versions, ids, out, V, M, K,
-                                                      N, C);
+    const dim3 grid((C + 31) / 32, B);
+    const uintptr_t at = reinterpret_cast<uintptr_t>(codes);
+    if (M % 8 == 0 && at % 8 == 0)
+      adc_l2_kernel<8><<<grid, 32 * kQGroups, 0, stream>>>(luts, codes, versions, ids, out, V, M,
+                                                           K, N, C);
+    else
+      adc_l2_kernel<1><<<grid, 32 * kQGroups, 0, stream>>>(luts, codes, versions, ids, out, V, M,
+                                                           K, N, C);
     return (int)cudaGetLastError();
   }
   DeviceInfo* d = nullptr;

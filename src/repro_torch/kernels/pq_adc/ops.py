@@ -9,16 +9,18 @@ from .. import _build
 from .ref import pq_adc_ref
 
 SMEM_PER_BLOCK = 232_448  # Hopper's opt-in shared memory per block (H100, H200)
-# Fewer rows per query than this take the l2 form: the staged forms cost
-# about 5-6 us whatever the rows (the version OR, barriers, one copy per
-# chunk), the l2 form about 0.1 us more per row per query. Measured on the
-# H100 (scripts/torch_round_kernels.py --designs, B=100-128, M=96, K=256):
-# at 41 rows, the build's beam (W=1), l2 wins with one schema and with two;
-# at 64, staged wins. The search's start node (C=1) and a few rows through
-# adc_distance_versioned take l2 too, and so does a table one block cannot
-# hold (V*M*K*4 past about 210 KB, e.g. M=192 or three schemas at M=96):
-# no configuration of the index has one.
-STAGED_MIN_ROWS = 64
+# Fewer rows per query than this take the l2 form: the staged form costs
+# 5-6 us whatever the rows (the version OR, barriers, one copy per chunk),
+# the l2 form about 0.04 us more per row per query at B=128. Measured on the
+# H100 (scripts/torch_round_kernels.py --designs, M=96, K=256, rows of two
+# schemas / of one; PERF.md): at 96 rows l2 0.00584 / 0.00485 ms
+# against staged 0.00622 / 0.00553, at 112 rows l2 0.00693 / 0.00546
+# against 0.00626 / 0.00559. So the build's beam (W=1, 41 rows) takes l2,
+# the search round (W=4, 164 rows) staged. The search's start node (C=1)
+# and a few rows through adc_distance_versioned take l2 too, and so does a
+# table one block cannot hold (V*M*K*4 past about 210 KB, e.g. M=192 or
+# three schemas at M=96): no configuration of the index has one.
+STAGED_MIN_ROWS = 100
 # staged form: candidates per pass (two threads each), the bytes before the
 # table, most schema versions (one 32-bit mask) -- kStagedTile, kHeader and
 # the mask in kernel.cu

@@ -31,7 +31,10 @@ def pq_encode(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     _build.launch("repro_pq_encode", x.data_ptr(), codebooks.data_ptr(), codes.data_ptr(),
                   N, M, K, dsub)
     pq_encode.launches += 1
+    # launches by rows, so a table can weigh each shape's time
+    pq_encode.launches_by_rows[N] = pq_encode.launches_by_rows.get(N, 0) + 1
     return codes
 
 
 pq_encode.launches = 0
+pq_encode.launches_by_rows = {}
