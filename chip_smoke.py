@@ -31,8 +31,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
     the defaults and with the same beam reranked at k' = 10k.
  5. the card against the CPU: the built state (``snapshot``) restored into a
     ``device="cpu"`` index, one batch searched there with the plain versions.
- 6. every kernel's launch counter (each form apart) rose during phase 4,
-    but for the forms in OFF_PATH, which are named with the reason;
+ 6. wide cuts: on the same index, one batch of 128 queries through
+    ``search`` at k=250 (k' = 1250, so the beam holds L = 1250 and every
+    merge keeps more than 1024) and through the qflat and brute plans at
+    k=250 with phase 4's filters, each its first call and the median of 3
+    more; recall@250 against ground truth, the launches of each topk_select
+    form, and card-vs-CPU ids on 16 queries. ``--wide-parent DIR`` also runs
+    this phase on DIR's package (an unpacked earlier commit), restored from
+    the same state, in turns with this tree's (DIR, this, this, DIR), each in
+    a process of its own.
+ 7. every kernel's launch counter (each form apart) rose during phase 4 or
+    phase 6, but for the forms in OFF_PATH, which are named with the reason;
     pq_encode's launches are also counted by rows, beside each timed shape.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -82,17 +91,20 @@ def check(cond: bool, msg: str) -> None:
 
 
 # the port's CUDA kernels, by the names the profiler gives them
-OUR_KERNELS = ("adc_staged_kernel", "adc_l2_kernel", "adc_dense_smem_kernel",
-               "topk_bitonic_kernel",
-               "topk_chunk_kernel", "topk_merge_kernel", "topk_iter_kernel",
+OUR_KERNELS = ("adc_staged_kernel", "adc_l2_kernel", "adc_dense_kernel",
+               "topk_bitonic_kernel", "topk_chunk_kernel", "topk_merge_kernel", "topk_sort_kernel",
+               "topk_radix_clear_kernel", "topk_radix_hist_kernel", "topk_radix_compact_kernel",
+               "topk_runs_merge_kernel",
                "flat_dense_3xtf32_kernel", "flat_dense_bf16_kernel", "flat_gathered_kernel",
                "pq_encode_kernel")
-# forms the main path does not reach, and why; every other form must launch there
+# forms that neither the main path nor the wide cuts reach, and why; every
+# other form must launch there
 OFF_PATH = {
-    "topk_select.iter": "L > 1024 (LONG_MAX_L): no cut of the search, build or filtered "
-                        "plans is that wide (the widest is k' = 50)",
     "flat_l2.dense_bf16": "bf16 inputs: the index stores and queries float32 vectors",
 }
+WIDE_K = 250  # phase 6: k' = 5k = 1250 > 1024, the widest cut a reranking caller asks for
+WIDE_REPEATS = 3  # warmed calls of each wide cut; their median is its time
+WIDE_CPU_QUERIES = 16  # queries of each wide cut also run on the CPU
 
 
 def host_ms(torch, fn, iters: int) -> float:
@@ -283,7 +295,9 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels.pq_adc.ops import FORMS as ADC_FORMS, adc_form
     from repro_torch.kernels.pq_encode.ref import pq_encode_ref
-    from repro_torch.kernels.topk_select.ops import LONG_MAX_L, RANK_MAX_N, long_chunks, topk_form
+    from repro_torch.kernels.topk_select.ops import (LONG_MAX_L, RANK_MAX_N, SORT_MAX_N,
+                                                     kernels_per_call, long_chunks, radix_plan,
+                                                     topk_form)
     from repro_torch.kernels.topk_select.ref import topk_select_ref
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -327,10 +341,34 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
     err_gl = adc_same(luts, codes, versions, ids, "search round (l2)", l2=True)
     start = torch.randint(0, N, (B, 1), generator=g, device=dev, dtype=torch.int32)
     err_s = adc_same(luts, codes, versions, start, "start node")
+    check(adc_form(N, V, M, Kc, False) == "dense", "Q-Flat does not take the dense form")
     got_d = K.pq_adc(luts, codes, versions)
     want_d = pq_adc_ref(luts, codes, versions)
     err_d = float((got_d - want_d).abs().max())
     check(torch.allclose(got_d, want_d, rtol=1e-5, atol=1e-5), f"pq_adc dense err {err_d}")
+    # the dense form at its edges: M not a multiple of 32 (the last slot
+    # part empty), odd M and codes at an odd address (no 2-byte code loads),
+    # V=1, K < 256, rows not a multiple of a warp's 32, B past the SM count
+    dense_edges = []
+    for what, nb, nv, nm, nk, n_rows in (
+            ("V=1", 8, 1, M, Kc, 5000), ("M=37", 8, 2, 37, Kc, 5000),
+            ("M=100, a pair group and singles", 8, 2, 100, 64, 5000),
+            ("M=8 K=16", 8, 2, 8, 16, 5000), ("K=16", 8, 2, M, 16, 5000),
+            ("M=3 K=16", 8, 2, 3, 16, 777), ("N=1003", 8, 2, M, Kc, 1003),
+            ("B=200, past the SM count", 200, 2, M, Kc, 3000),
+            ("codes at an odd address", 8, 2, M, Kc, 2000)):
+        el = torch.randn(nb, nv, nm, nk, generator=g, device=dev)
+        buf = torch.randint(0, nk, (n_rows * nm + 1,), generator=g, device=dev,
+                            dtype=torch.uint8)
+        ec = buf[1:].view(n_rows, nm) if "odd" in what else buf[:-1].view(n_rows, nm)
+        ev = torch.randint(0, nv + 1, (n_rows,), generator=g, device=dev, dtype=torch.uint8)
+        check(adc_form(n_rows, nv, nm, nk, False) == "dense", f"pq_adc dense edge {what}: form")
+        got_e, want_e = K.pq_adc(el, ec, ev), pq_adc_ref(el, ec, ev)
+        err = float((got_e - want_e).abs().max())
+        check(torch.allclose(got_e, want_e, rtol=1e-5, atol=1e-5), f"pq_adc dense {what}: err {err}")
+        dense_edges.append(dict(case=what, max_abs_err=err))
+    print("pq_adc dense edges: " + "; ".join(f"{e['case']} err {e['max_abs_err']:.2e}"
+                                             for e in dense_edges), flush=True)
     # the gathered forms at their edges; each case takes the form adc_form gives it
     edges = []
     for what, nb, nc, nv, nm, nk, setup in (
@@ -416,7 +454,8 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
         **timed(torch, lambda: K.pq_adc(luts_b, codes, versions, ids_b),
                 lambda: pq_adc_ref(luts_b, codes, versions, ids_b), None, 200))
     out["pq_adc.dense"] = dict(
-        max_abs_err=err_d, bound_ms=db, bound_by=dby, shape=f"B={B} N={N} V={V} M={M} K={Kc}",
+        max_abs_err=max([err_d] + [e["max_abs_err"] for e in dense_edges]), edges=dense_edges,
+        bound_ms=db, bound_by=dby, shape=f"B={B} N={N} V={V} M={M} K={Kc}",
         **timed(torch, lambda: K.pq_adc(luts, codes, versions),
                 lambda: pq_adc_ref(luts, codes, versions), None, 10))
     del luts, codes, versions, got_d, want_d, luts_b, one
@@ -435,26 +474,44 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
         d[torch.rand(rows, n, generator=g, device=dev) < 0.3] = float("inf")
         return d
 
+    def plan_of(rows, n, L):
+        form = topk_form(n, L)
+        if form == "long":
+            return " S={} chunk={}".format(*long_chunks(rows, n, L))
+        if form == "radix":
+            p = radix_plan(rows, n, L)
+            return (f" S={p['S']} chunk={p['chunk']} passes<={p['passes']} P={p['P']} "
+                    f"runs={p['runs']}")
+        return ""
+
     forms = {}
+    # the path's shapes; the large-L forms (L > LONG_MAX_L) at the beam merge
+    # of a k=250 search (L = k' = 1250 over 1250 + W * R_slack), Q-Flat's cut
+    # at k'=1250, and N = 1e5 at L = 1025 (the iterating kernel's row in
+    # PR 14), 5000 and 20 000 (merged runs); "normal" rows beside tie-heavy ones
+    kw = WIDE_K * 5
     shapes = [("merge", B, 100 + C, 100, False), ("frontier", B, 100, 4, False),
               ("rerank", B, 50, 10, True), ("prune_cut", 100, 316, 32, False),
               ("brute", B, N, 10, True), ("qflat", B, N, 50, True),
-              ("wide", B, N, LONG_MAX_L + 1, True)]
+              ("merge_k250", B, kw + C, kw, False), ("merge_k250 normal", B, kw + C, kw, False),
+              ("wide", B, N, LONG_MAX_L + 1, True), ("wide normal", B, N, LONG_MAX_L + 1, True),
+              ("qflat_k250", B, N, kw, True), ("wide L=5000", B, N, 5000, True),
+              ("wide L=20000", B, N, 20_000, True)]
     for name, rows, n, L, mark in shapes:
         form = topk_form(n, L)
-        d = tie_heavy(rows, n)
+        d = (torch.randn(rows, n, generator=g, device=dev) if "normal" in name
+             else tie_heavy(rows, n))
         for m in (mark, not mark):
             topk_same(d, L, m, f"{name} B={rows} N={n} L={L} mark={m}")
         b_ms, b_by = bound(rows * n * 4 + rows * L * 8, rows * n)
-        plan = " S={} chunk={}".format(*long_chunks(rows, n, L)) if form == "long" else ""
-        it = 200 if n < 10_000 else (20 if form == "long" else 3)
+        it = 200 if n < 10_000 else (3 if L > 10_000 else 20)
         forms.setdefault(form, []).append(dict(
-            form=name, shape=f"B={rows} N={n} L={L}{plan}", bound_ms=b_ms, bound_by=b_by,
-            max_abs_err=0.0,  # values equal bit for bit, checked above
+            form=name, shape=f"B={rows} N={n} L={L}{plan_of(rows, n, L)}", bound_ms=b_ms,
+            bound_by=b_by, max_abs_err=0.0,  # values equal bit for bit, checked above
             **timed(torch, lambda: K.topk_select(d, L, mark),
                     lambda: topk_select_ref(d, L, mark),
                     lambda: torch.topk(d, L, dim=1, largest=False), it,
-                    per_call=2 if form == "long" else 1)))  # long: chunk and merge
+                    per_call=kernels_per_call(rows, n, L))))
         del d
     # the rank form at its edges: L = 1 and L = N, tie-heavy rows and rows
     # all +inf, with NaN, with +-0.0 and -inf, both ways of marking
@@ -493,10 +550,32 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
         for m in (False, True):
             topk_same(d, L, m, f"{what} N={d.shape[1]} L={L} mark={m}")
     del edges, odd
+    # the sort and radix forms at their edges, both ways of marking: L = N
+    # just past the rank form; N just past one sort block (L = 1025, and L =
+    # N: merged runs); rows all +inf (ties past every value pass), with NaN,
+    # +-0.0 and -inf, tie-heavy
+    edges = [("L = N = 1025", tie_heavy(3, 1025), 1025),
+             ("N just past a sort block", tie_heavy(3, SORT_MAX_N + 1), LONG_MAX_L + 1),
+             ("L = N just past a sort block", tie_heavy(2, SORT_MAX_N + 1), SORT_MAX_N + 1)]
+    for n, L in ((kw + C, kw), (20_000, kw), (20_000, 20_000)):
+        odd = torch.randn(5, n, generator=g, device=dev)
+        odd[0] = float("inf")
+        odd[1, ::7] = float("nan")
+        odd[2, ::3] = 0.0
+        odd[2, 1::3] = -0.0
+        odd[3, ::5] = -float("inf")
+        odd[4] = tie_heavy(1, n)[0]
+        edges.append((f"inf/NaN/-0/tie rows N={n}", odd, L))
+    for what, d, L in edges:
+        check(topk_form(d.shape[1], L) in ("sort", "radix"), f"{what}: not a large-L form")
+        for m in (False, True):
+            topk_same(d, L, m, f"{what} N={d.shape[1]} L={L} mark={m}")
+    del edges, odd
     # rows up to RANK_MAX_N take the ranking kernel (the beam merge is the
     # main shape; the other short rows are listed beside it), longer rows the
     # two-stage long form (brute force and ground truth at L=10, Q-Flat at
-    # k'=50), and L > LONG_MAX_L the iterating one
+    # k'=50), and L > LONG_MAX_L the sort form (rows up to SORT_MAX_N: the
+    # beam merge at k=250) or the radix select (Q-Flat at k'=1250)
     for form, (main, *more) in forms.items():
         main["shape"] = f"{main.pop('form')} {main['shape']}"
         out[f"topk_select.{form}"] = dict(main, forms=more)
@@ -736,7 +815,98 @@ def main_path(torch, np, K, dev, args) -> dict:
     check(recall >= RECALL_FLOOR_DEFAULTS, f"recall@10 {recall} < {RECALL_FLOOR_DEFAULTS}")
     check(recall_wide >= RECALL_FLOOR_WIDE_RERANK,
           f"recall@10 at k'=10k {recall_wide} < {RECALL_FLOOR_WIDE_RERANK}")
-    return out, idx, results[0], queries[:128], gt_docs[:128], draw
+    masks = {"qflat": narrow, "brute": broad}
+    return out, idx, results[0], queries[:128], gt_docs[:128], draw, masks
+
+
+# ---------------------------------------------------------------------------
+# phase 6: cuts wider than 1024
+# ---------------------------------------------------------------------------
+
+
+def wide_cut(torch, np, K, idx, q, masks: dict, gt: dict, cpu=None) -> dict:
+    """search at k=WIDE_K and the qflat and brute plans at k=WIDE_K on idx
+    (this tree's index or another tree's, restored from the same state):
+    each call's first and median warmed wall time, rounds, the launches of
+    each kernel form per call (counters reset just before), recall@WIDE_K
+    against gt, and with ``cpu`` (an index on the CPU with the same state)
+    the ids of WIDE_CPU_QUERIES queries compared."""
+    from repro_torch.core import recall as rec
+
+    out, counts = {}, {}
+    K.reset_launch_counts()
+    for name, call in (("search", lambda qq: idx.search(qq, k=WIDE_K)),
+                       ("qflat", lambda qq: idx.filtered_search(qq, WIDE_K, masks["qflat"],
+                                                                mode="qflat")),
+                       ("brute", lambda qq: idx.filtered_search(qq, WIDE_K, masks["brute"],
+                                                                mode="brute"))):
+        before = K.launch_counts()
+        secs = []
+        for _ in range(1 + WIDE_REPEATS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ids, dists, st = call(q)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        after = K.launch_counts()
+        check(ids.shape == (len(q), WIDE_K) and (name == "search" or st.plan == name),
+              f"wide {name}: output {ids.shape}, plan {st.plan}")
+        ok = ids >= 0
+        check(bool(np.isfinite(dists[ok]).all()) and bool((np.diff(dists, axis=1)[ok[:, 1:]]
+                                                            >= 0).all()),
+              f"wide {name}: distances not finite and sorted")
+        if name != "search":  # doc i lives in slot i here
+            check(bool(masks[name][ids[ok]].all()), f"wide {name}: a non-matching doc")
+        r = dict(ms=float(np.median(secs[1:])) * 1e3, first_ms=secs[0] * 1e3,
+                 hops=float(st.hops), recall=rec.recall_at_k(ids, gt[name], WIDE_K),
+                 launches_per_call={k: (after[k] - before[k]) / (1 + WIDE_REPEATS)
+                                    for k in after if after[k] > before[k]})
+        if cpu is not None:
+            n = WIDE_CPU_QUERIES
+            want = (cpu.search(q[:n], k=WIDE_K) if name == "search" else
+                    cpu.filtered_search(q[:n], WIDE_K, masks[name], mode=name))[0]
+            r["cpu_ids_equal"] = float((want == ids[:n]).mean())
+        out[name] = r
+        counts = K.launch_counts()
+        print(f"wide {name} k={WIDE_K}: " + json.dumps(r), flush=True)
+    return out, counts
+
+
+def wide_state(path: Path, idx, q, masks, gt) -> None:
+    """Everything another tree needs to run phase 6 on the same index."""
+    import numpy as np
+
+    snap = idx.snapshot()
+    schemas = snap.pop("schemas")
+    np.savez(path, **snap, **{f"schema_{i}": s for i, s in enumerate(schemas)}, queries=q,
+             **{f"mask_{k}": v for k, v in masks.items()}, **{f"gt_{k}": v for k, v in gt.items()},
+             cfg=np.asarray(json.dumps(idx.cfg._asdict())), dim=idx.dim)
+
+
+def wide_tree(tree: Path, state: Path) -> int:
+    """Phase 6 on tree's package (DIR/src/repro_torch), restored from state."""
+    sys.path.insert(0, str(tree.resolve() / "src"))
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.core import DiskANNIndex, GraphConfig
+
+    z = np.load(state)
+    cfg = json.loads(str(z["cfg"]))
+    idx = DiskANNIndex(GraphConfig(**{k: v for k, v in cfg.items() if k in GraphConfig._fields}),
+                       int(z["dim"]), device="cuda")
+    snap = {k: z[k] for k in ("neighbors", "codes", "versions", "live", "vectors",
+                              "slot_to_doc")}
+    snap.update(count=int(z["count"]), medoid=int(z["medoid"]),
+                graph_built=bool(z["graph_built"]),
+                schemas=[z[f"schema_{i}"] for i in range(8) if f"schema_{i}" in z])
+    idx.restore(snap)
+    masks = {k: z[f"mask_{k}"] for k in ("qflat", "brute")}
+    gt = {k: z[f"gt_{k}"] for k in ("search", "qflat", "brute")}
+    out, counts = wide_cut(torch, np, K, idx, z["queries"], masks, gt)
+    print(json.dumps(dict(tree=str(tree), wide=out, launches=counts)), flush=True)
+    return 0
 
 
 def profile(torch, np, idx, queries, draw, out_dir: Path) -> dict:
@@ -804,7 +974,47 @@ def cpu_compare(np, idx, gpu_ids, q, gt_docs) -> dict:
     print("card vs cpu: " + json.dumps(out), flush=True)
     check(same >= 0.99, f"card and CPU ids agree in only {same:.4f} of slots")
     check(abs(r_cpu - r_gpu) <= 0.01, "card and CPU recall differ by more than 0.01")
-    return out
+    return out, cpu
+
+
+def wide_phase(torch, np, K, idx, q, masks: dict, cpu, parent: str) -> tuple:
+    """Phase 6 on this tree's index: ground truth at k=WIDE_K for each cut,
+    the cuts (wide_cut) with the CPU comparison, and with ``parent`` the
+    turns parent, this, this, parent in processes of their own."""
+    from repro_torch.core import recall as rec
+
+    dev = torch.device("cuda")
+    vec_t = torch.from_numpy(idx.pv.vectors).to(dev)
+    live = idx.pv.live.copy()
+    qt = torch.from_numpy(q).to(dev)
+    gt = {name: idx.slot_to_doc[rec.ground_truth(qt, vec_t, torch.from_numpy(m).to(dev), WIDE_K)]
+          for name, m in (("search", live), ("qflat", masks["qflat"] & live),
+                          ("brute", masks["brute"] & live))}
+    del vec_t, qt
+    out, counts = wide_cut(torch, np, K, idx, q, masks, gt, cpu)
+    for name, r in out.items():
+        check(r["cpu_ids_equal"] >= 0.99,
+              f"wide {name}: card and CPU ids agree in only {r['cpu_ids_equal']:.4f} of slots")
+    check(out["brute"]["recall"] >= 0.99, f"wide brute: recall {out['brute']['recall']} < 0.99")
+    for form in ("topk_select.sort", "topk_select.radix"):
+        check(counts[form] > 0, f"{form} did not launch in the wide cuts")
+    turns = []
+    if parent:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            state = Path(tmp) / "wide_state.npz"
+            wide_state(state, idx, q, masks, gt)
+            for tree in (Path(parent), ROOT, ROOT, Path(parent)):
+                p = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--wide-tree",
+                                    str(tree), "--wide-state", str(state)],
+                                   capture_output=True, text=True)
+                check(p.returncode == 0, f"wide cuts on {tree}: {p.stdout[-2000:]} "
+                                         f"{p.stderr[-2000:]}")
+                turns.append(json.loads(p.stdout.strip().splitlines()[-1]))
+                turns[-1]["tree"] = "parent" if tree != ROOT else "this"
+                print("wide turn: " + json.dumps(turns[-1]), flush=True)
+    return out, counts, turns
 
 
 def run(args) -> int:
@@ -814,6 +1024,8 @@ def run(args) -> int:
         return fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     if not (ROOT / "src" / "repro_torch").is_dir():
         return fail(f"no src/repro_torch beside {Path(__file__).name}: run it from the repository")
+    if args.wide_tree:
+        return wide_tree(Path(args.wide_tree), Path(args.wide_state))
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
@@ -863,15 +1075,17 @@ def run(args) -> int:
         return 0
     torch.cuda.empty_cache()
 
-    # 4-6. main path, card against CPU, launches
-    path, idx, gpu_ids, q, gt_docs, draw = main_path(torch, np, K, dev, args)
-    versus = cpu_compare(np, idx, gpu_ids, q, gt_docs)
-    counts = path["launches"]
+    # 4-7. main path, card against CPU, wide cuts, launches
+    path, idx, gpu_ids, q, gt_docs, draw, masks = main_path(torch, np, K, dev, args)
+    versus, cpu = cpu_compare(np, idx, gpu_ids, q, gt_docs)
+    wide, wide_counts, wide_turns = wide_phase(torch, np, K, idx, q, masks, cpu, args.wide_parent)
+    del cpu
+    counts = {k: v + wide_counts[k] for k, v in path["launches"].items()}
     for name, why in OFF_PATH.items():
         print(f"launch check: {name} is off the main path ({counts[name]} launches): {why}",
               flush=True)
     missing = [k for k, v in counts.items() if v <= 0 and k not in OFF_PATH]
-    check(not missing, f"kernels not launched on the main path: {missing}")
+    check(not missing, f"kernels not launched on the main path or the wide cuts: {missing}")
 
     sources = {"pq_adc": 49, "topk_select": 61, "flat_l2": 44, "pq_encode": 29}
     line = {"kernels": [], "card": card, "launch_floor_ms": floor_ms}
@@ -880,7 +1094,8 @@ def run(args) -> int:
         entry = dict(name=name, route="cuda",
                      source=f"src/repro_torch/kernels/{kernel}/kernel.cu",
                      replaces=f"src/repro/kernels/{kernel}/kernel.py:{sources[kernel]}",
-                     launches=counts[name],
+                     launches=counts[name], launches_main_path=path["launches"][name],
+                     launches_wide_cuts=wide_counts[name],
                      launches_per_query_batch=path["launches_per_query_batch"][name])
         entry.update(k)
         if name == "pq_encode":  # each timed shape's launches on the main path
@@ -891,7 +1106,8 @@ def run(args) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(kernels=line["kernels"], main_path=path,
-                                                  card_vs_cpu=versus, profile=prof, card=card,
+                                                  card_vs_cpu=versus, wide_cuts=wide,
+                                                  wide_turns=wide_turns, profile=prof, card=card,
                                                   launch_floor_ms=floor_ms), indent=1))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -909,6 +1125,11 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after the checks, profile one query batch and three insert "
                          "mini-batches (tables beside --out)")
+    ap.add_argument("--wide-parent", default="",
+                    help="also run the wide cuts on this directory's package (an unpacked "
+                         "earlier commit), in turns with this tree's")
+    ap.add_argument("--wide-tree", default="", help=argparse.SUPPRESS)  # one turn of --wide-parent
+    ap.add_argument("--wide-state", default="", help=argparse.SUPPRESS)
     return run(ap.parse_args())
 
 

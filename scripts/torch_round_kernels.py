@@ -195,7 +195,7 @@ def designs() -> dict:
         vals = torch.empty((B, L), dtype=torch.float32, device=dev)
         idx = torch.empty((B, L), dtype=torch.int32, device=dev)
         _build.launch("repro_topk_select", d.data_ptr(), vals.data_ptr(), idx.data_ptr(), None,
-                      B, N, L, 1, N, int(mark), code)
+                      B, N, L, 1, N, 0, int(mark), code)
         return vals, idx
 
     out = {}

@@ -24,7 +24,8 @@ COUNTERS = {
     "pq_adc.dense": (pq_adc, "dense_launches"),
     "topk_select.rank": (topk_select, "rank_launches"),
     "topk_select.long": (topk_select, "long_launches"),
-    "topk_select.iter": (topk_select, "iter_launches"),
+    "topk_select.sort": (topk_select, "sort_launches"),
+    "topk_select.radix": (topk_select, "radix_launches"),
     "flat_l2.dense": (flat_l2, "launches"),
     "flat_l2.dense_bf16": (flat_l2, "bf16_launches"),
     "flat_l2.gathered": (flat_l2_gathered, "launches"),

@@ -37,8 +37,8 @@ SIGNATURES = {
     "repro_pq_adc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, codebooks, codes, N, M, K, dsub, stream
     "repro_pq_encode": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # dists, vals, idx, ws|NULL, B, N, L, S, chunk, mark_nonfinite, form, stream
-    "repro_topk_select": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dists, vals, idx, ws|NULL, B, N, L, S, chunk, sort_p, mark_nonfinite, form, stream
+    "repro_topk_select": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, x, out, B, N, D, is_bf16, metric_ip, stream
     "repro_flat_l2_dense": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, x, ids, out, B, N, C, D, metric_ip, stream

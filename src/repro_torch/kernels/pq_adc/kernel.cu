@@ -46,9 +46,17 @@
 //    trips: the id; the row's version with its code units (8-byte words at
 //    M=96), issued together; then 24 table loads in flight. With ids ==
 //    NULL the rows are r = c.
-//  * dense (Q-Flat over all N rows): every row is looked up in every table,
-//    so one query's table is staged once in dynamic shared memory and a grid
-//    of blocks per query sweeps the rows, one thread per row.
+//  * dense (Q-Flat over all N rows: B=128 queries x N=100 000 rows, V=2,
+//    M=96, K=256): 1.23e9 lookups, so the limit is the SMs' instruction
+//    issue and load/store path (a 32-lane lookup a clock an SM at best),
+//    not the 86 MB the call moves. A block per query (more per query while
+//    B is below the SM count) stages the query's table in shared memory
+//    once, in a layout where each lane's entries sit in the lane's own
+//    bank, so no lookup conflicts; a warp takes 32 rows at a time, each lane
+//    summing its subspaces of every row, and a reduce-scatter over the warp
+//    gives each lane one row's sum (adc_dense_kernel). Per row at M=96: two
+//    coalesced code loads, three lookups, about one shuffle, ~19
+//    instructions a warp (PERF.md).
 //  * ids < 0 or >= N write +inf; the caller masks such lanes anyway.
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,6 +67,9 @@ namespace {
 
 // form codes, as ops.py passes them
 constexpr int kFormL2 = 0, kFormStaged = 1, kFormDense = 2;
+// the dense form with one code byte a load (no pair groups), which ops.py
+// does not take: a design for scripts/torch_scan_kernels.py
+constexpr int kFormDenseSingles = 3;
 
 constexpr int kStagedTile = 192;  // candidates per pass (STAGED_TILE)
 constexpr int kLanes = 2;         // threads per candidate, each summing part of the subspaces
@@ -340,29 +351,202 @@ __global__ void __launch_bounds__(32 * kQGroups)
   }
 }
 
-__global__ void adc_dense_smem_kernel(const float* __restrict__ luts,
-                                      const uint8_t* __restrict__ codes,
-                                      const uint8_t* __restrict__ versions,
-                                      float* __restrict__ out,
-                                      int V, int M, int K, int N) {
-  extern __shared__ float table[];  // V * M * K floats of query b
+// ---- dense form: Q-Flat, every row against every query's table -------------
+
+constexpr int kDenseWarps = 16;
+constexpr int kDenseThreads = 32 * kDenseWarps;
+constexpr int kDenseMaxSlots = 7;  // ceil(M / 32): a table of V * slots * K * 128 bytes fits
+
+// The lane plan of the bank-per-lane layout (ops.dense_subspace computes the
+// same): slot s of lane i is subspace dense_m(s, i), or -1. With `pairs`
+// (M even, codes 2-byte aligned) the first 64 * pairs subspaces go two to a
+// lane (2i, 2i + 1 of each 64), one 2-byte code load for both; the rest one
+// to a lane (i of each 32). Either way there are ceil(M / 32) slots.
+__host__ __device__ inline int dense_m(int slot, int lane, int M, int pairs) {
+  if (slot < 2 * pairs) return 64 * (slot / 2) + 2 * lane + slot % 2;
+  const int m = 64 * pairs + 32 * (slot - 2 * pairs) + lane;
+  return m < M ? m : -1;
+}
+
+__device__ __forceinline__ uint32_t ld_cs_u8(const uint8_t* p) {
+  uint32_t v;
+  asm("ld.global.cs.u8 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint32_t ld_cs_u16(const uint8_t* p) {
+  uint32_t v;
+  asm("ld.global.cs.u16 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+// Rows kH..kH+kRows-1 of a warp's 32 (the first nr exist; kSafe: all 32
+// lie inside the codes, so none needs a bound check): their code loads,
+// kS - kPairs a row (one per pair group, one per single slot).
+template <int kS, int kPairs, int kH, int kRows, bool kSafe>
+__device__ __forceinline__ void dense_load(uint32_t (&cw)[kRows][kS - kPairs],
+                                           const uint8_t* __restrict__ rows, int M, int nr,
+                                           int lane) {
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+    const uint8_t* row = rows + (kH + rr) * M;
+    const bool in = kSafe || kH + rr < nr;
+#pragma unroll
+    for (int c = 0; c < kS - kPairs; ++c) {
+      if (c < kPairs) {
+        cw[rr][c] = in ? ld_cs_u16(row + 64 * c + 2 * lane) : 0u;
+      } else {
+        const int m = 64 * kPairs + 32 * (c - kPairs) + lane;
+        cw[rr][c] = in && m < M ? ld_cs_u8(row + m) : 0u;
+      }
+    }
+  }
+}
+
+// The same rows' lookups, each row's slots summed in slot order from the
+// first into p[kH + rr]; the row's version from the warp's ballots vb
+// (kVBits of them). Byte offsets from the table: ((slot * K + code) * V +
+// v) * 128 + lane * 4; at V=2 the code, version and lane parts fill bytes 1
+// and 0 apart, so one byte move or mask makes a lookup's offset. Template
+// offsets keep p's indices static, so p stays in registers.
+template <int kS, int kPairs, int kVBits, int kH, int kRows>
+__device__ __forceinline__ void dense_sum(float (&p)[32], const uint32_t (&cw)[kRows][kS - kPairs],
+                                          const char* table, int lane, int K, int V,
+                                          const unsigned (&vb)[3]) {
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+    const int r = kH + rr;
+    uint32_t v = (vb[0] >> r) & 1u;
+    if (kVBits > 1) v |= ((vb[1] >> r) & 1u) << 1;
+    if (kVBits > 2) v |= ((vb[2] >> r) & 1u) << 2;
+    const uint32_t vl = (v << 7) | ((uint32_t)lane << 2);  // the version and lane part
+    float acc;
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      const uint32_t c = s < 2 * kPairs ? cw[rr][s / 2] : cw[rr][s - kPairs];
+      uint32_t off;
+      if (V == 2) {  // code << 8 | vl: byte 0 of c (or its byte 1 in place) beside vl
+        off = s < 2 * kPairs && s % 2 ? (c & 0xff00u) | vl : __byte_perm(c, vl, 0x5504);
+      } else {
+        off = (s < 2 * kPairs ? (s % 2 ? c >> 8 : c & 0xffu) : c) * (uint32_t)V * 128u + vl;
+      }
+      const float x = *reinterpret_cast<const float*>(table + off + s * K * V * 128);
+      acc = s == 0 ? x : acc + x;
+    }
+    p[r] = acc;
+  }
+}
+
+// The reduce-scatter of a warp's 32 row partials: at offset kO each lane
+// keeps the half of its rows whose bit kO matches its own and adds its
+// partner's partials of them, so p[j] becomes row j + (lane & ~(2kO - 1))'s
+// sum so far; after kO = 1, p[0] is row lane's sum.
+template <int kO>
+__device__ __forceinline__ void reduce_scatter(float (&p)[32], int lane) {
+  const bool upper = (lane & kO) != 0;
+#pragma unroll
+  for (int j = 0; j < kO; ++j) {
+    const float lo = p[j], hi = p[j + kO];
+    const float send = upper ? lo : hi;
+    const float keep = upper ? hi : lo;
+    p[j] = keep + __shfl_xor_sync(0xffffffffu, send, kO);
+  }
+  if constexpr (kO > 1) reduce_scatter<kO / 2>(p, lane);
+}
+
+// One group of a warp: the lookups of its 32 rows (codes ca, cb for rows
+// 0-15 on entry), rows 16-31's loads issued as rows 0-15 are summed, and
+// the next group's rows 0-15 (at rows1, n1 of them) as rows 16-31 are.
+template <int kS, int kPairs, int kVBits, bool kSafe>
+__device__ __forceinline__ void dense_group(float (&p)[32], uint32_t (&ca)[8][kS - kPairs],
+                                            uint32_t (&cb)[8][kS - kPairs], const uint8_t* rows0,
+                                            const uint8_t* rows1, int M, int K, int V, int nr,
+                                            int n1, int lane, const char* t,
+                                            const unsigned (&vb)[3]) {
+  dense_sum<kS, kPairs, kVBits, 0, 8>(p, ca, t, lane, K, V, vb);
+  dense_load<kS, kPairs, 16, 8, kSafe>(ca, rows0, M, nr, lane);
+  dense_sum<kS, kPairs, kVBits, 8, 8>(p, cb, t, lane, K, V, vb);
+  dense_load<kS, kPairs, 24, 8, kSafe>(cb, rows0, M, nr, lane);
+  dense_sum<kS, kPairs, kVBits, 16, 8>(p, ca, t, lane, K, V, vb);
+  dense_load<kS, kPairs, 0, 8, kSafe>(ca, rows1, M, n1, lane);
+  dense_sum<kS, kPairs, kVBits, 24, 8>(p, cb, t, lane, K, V, vb);
+  dense_load<kS, kPairs, 8, 8, kSafe>(cb, rows1, M, n1, lane);
+}
+
+// Block (x, b) takes query b's rows [x * rows, (x + 1) * rows). Its table
+// goes to shared memory once, in the bank-per-lane layout: entry (v, m,
+// code) at word ((slot * K + code) * V + v) * 32 + lane for the (slot,
+// lane) of m, so lane i's lookups all fall in bank i and none conflict (the
+// entries of a lane with no subspace in a slot are 0). A warp takes 32 rows
+// at a time: one version a lane, spread to every lane by kVBits ballots;
+// the rows' codes in four batches of 8, each batch's loads issued two
+// batches ahead, into the next group too (at M=96 a row's 96 code bytes
+// come as 64 B and 32 B coalesced); each lane sums its slots of each row in
+// slot order, (t_0 + t_1) + t_2 + ..., and a reduce-scatter over the warp
+// (31 shuffle-adds) leaves lane i with row i's sum, stored coalesced. Sum
+// order: per row, the 32 lane partials combined as a butterfly, pairs at
+// lane distance 16 first (tests/test_torch_kernels.py emulates it). kK,
+// kM, kV: K, M and V fixed at compile time (the path's 256, 96 and 2,
+// which turns every table and code offset into an immediate), or 0 for
+// the values passed.
+template <int kS, int kPairs, int kVBits, int kK, int kM, int kV>
+__global__ void __launch_bounds__(kDenseThreads, 1)
+    adc_dense_kernel(const float* __restrict__ luts, const uint8_t* __restrict__ codes,
+                     const uint8_t* __restrict__ versions, float* __restrict__ out, int V_,
+                     int M_, int K_, int N, int rows) {
+  extern __shared__ __align__(16) float table[];  // kS * K * V * 32 floats of query b
+  const int K = kK ? kK : K_, M = kM ? kM : M_, V = kV ? kV : V_;
   const int b = blockIdx.y;
-  const int entries = V * M * K;
-  const float4* src = reinterpret_cast<const float4*>(luts + (int64_t)b * entries);
-  float4* dst = reinterpret_cast<float4*>(table);
-  for (int i = threadIdx.x; i < entries / 4; i += blockDim.x) dst[i] = src[i];
-  for (int i = (entries / 4) * 4 + threadIdx.x; i < entries; i += blockDim.x)
-    table[i] = luts[(int64_t)b * entries + i];
+  const int warp = threadIdx.x / 32;
+  const int lane = (int)(threadIdx.x & 31u);  // known to be < 32: no bound check on it
+  const int kq = K / 4;
+  for (int i = threadIdx.x; i < V * kS * kq * 32; i += kDenseThreads) {
+    const int li = i % 32, q = (i / 32) % kq, vs = i / 32 / kq;
+    const int v = vs / kS, slot = vs % kS;
+    const int m = dense_m(slot, li, M, kPairs);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (m >= 0)
+      x = __ldg(reinterpret_cast<const float4*>(luts + (((int64_t)b * V + v) * M + m) * K + 4 * q));
+    float* dst = table + (((size_t)slot * K + 4 * q) * V + v) * 32 + li;
+    dst[0] = x.x;
+    dst[V * 32] = x.y;
+    dst[2 * V * 32] = x.z;
+    dst[3 * V * 32] = x.w;
+  }
   __syncthreads();
-  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < N;
-       r += (int64_t)gridDim.x * blockDim.x) {
-    int v = versions[r];
-    v = v < V ? v : V - 1;
-    const float* t = table + v * M * K;
-    const uint8_t* row = codes + r * M;
-    float acc = 0.f;
-    for (int m = 0; m < M; ++m) acc += t[m * K + row[m]];
-    out[(int64_t)b * N + r] = acc;
+  const int64_t r_begin = (int64_t)blockIdx.x * rows;
+  const int64_t r_end = min((int64_t)N, r_begin + rows);
+  const char* t = reinterpret_cast<const char*>(table);
+  constexpr int kCodes = kS - kPairs;
+  constexpr int64_t kStride = 32 * kDenseWarps;
+  // the warp's groups of 32 rows from r0; each group's codes in four
+  // batches of 8 rows, loaded two batches ahead, across groups too
+  int64_t r0 = r_begin + 32 * warp;
+  if (r0 >= r_end) return;
+  int nr = (int)min((int64_t)32, r_end - r0);  // rows of the group: the same in every lane
+  uint32_t ca[8][kCodes], cb[8][kCodes];
+  dense_load<kS, kPairs, 0, 8, false>(ca, codes + r0 * M, M, nr, lane);
+  dense_load<kS, kPairs, 8, 8, false>(cb, codes + r0 * M, M, nr, lane);
+  int my_v = lane < nr ? min((int)versions[r0 + lane], V - 1) : 0;
+  while (true) {
+    unsigned vb[3] = {__ballot_sync(0xffffffffu, my_v & 1), 0u, 0u};
+    if (kVBits > 1) vb[1] = __ballot_sync(0xffffffffu, my_v & 2);
+    if (kVBits > 2) vb[2] = __ballot_sync(0xffffffffu, my_v & 4);
+    const int64_t r1 = r0 + kStride;  // the next group, its first two batches loaded now
+    const int n1 = r1 < r_end ? (int)min((int64_t)32, r_end - r1) : 0;
+    float p[32];  // p[r]: this lane's partial of row r0 + r
+    if (r1 + 32 <= N) {  // this group's rows and the next one's lie inside the codes
+      dense_group<kS, kPairs, kVBits, true>(p, ca, cb, codes + r0 * M, codes + r1 * M, M, K, V,
+                                            nr, n1, lane, t, vb);
+    } else {
+      dense_group<kS, kPairs, kVBits, false>(p, ca, cb, codes + r0 * M, codes + r1 * M, M, K, V,
+                                             nr, n1, lane, t, vb);
+    }
+    my_v = lane < n1 ? min((int)versions[r1 + lane], V - 1) : 0;
+    reduce_scatter<16>(p, lane);
+    if (lane < nr) out[(int64_t)b * N + r0 + lane] = p[0];
+    if (n1 == 0) break;
+    r0 = r1;
+    nr = n1;
   }
 }
 
@@ -372,9 +556,10 @@ __global__ void adc_dense_smem_kernel(const float* __restrict__ luts,
 struct DeviceInfo {
   bool ready = false;
   int smem_optin = 0, sms = 0;
-  bool raised[2] = {false, false};  // staged, dense
+  bool raised[40] = {};  // by kernel: kRaisedStaged ... kRaisedDense + (slots - 1) * 4 + pairs
 };
 constexpr int kMaxDevices = 64;
+constexpr int kRaisedStaged = 0, kRaisedDensePath = 1, kRaisedDense = 5;
 DeviceInfo g_devices[kMaxDevices];
 
 cudaError_t device_info(DeviceInfo** out) {
@@ -407,6 +592,57 @@ cudaError_t allow_smem(DeviceInfo* d, int which, Kernel kernel, size_t smem) {
   return cudaSuccess;
 }
 
+template <int kS, int kPairs, int kVBits = 3, int kK = 0, int kM = 0, int kV = 0>
+cudaError_t launch_dense_t(DeviceInfo* d, dim3 grid, size_t smem, const float* luts,
+                           const uint8_t* codes, const uint8_t* versions, float* out, int V,
+                           int M, int K, int N, int rows, cudaStream_t stream) {
+  const int which = kK ? kRaisedDensePath + 2 * kPairs + kV - 1
+                       : kRaisedDense + (kS - 1) * 4 + kPairs;
+  const cudaError_t e =
+      allow_smem(d, which, adc_dense_kernel<kS, kPairs, kVBits, kK, kM, kV>, smem);
+  if (e != cudaSuccess) return e;
+  adc_dense_kernel<kS, kPairs, kVBits, kK, kM, kV><<<grid, kDenseThreads, smem, stream>>>(
+      luts, codes, versions, out, V, M, K, N, rows);
+  return cudaGetLastError();
+}
+
+template <int kS, int kPairs = 0>
+cudaError_t launch_dense_s(int pairs, DeviceInfo* d, dim3 grid, size_t smem, const float* luts,
+                           const uint8_t* codes, const uint8_t* versions, float* out, int V,
+                           int M, int K, int N, int rows, cudaStream_t stream) {
+  if constexpr (2 * kPairs <= kS) {
+    if (pairs == kPairs)
+      return launch_dense_t<kS, kPairs>(d, grid, smem, luts, codes, versions, out, V, M, K, N,
+                                        rows, stream);
+    return launch_dense_s<kS, kPairs + 1>(pairs, d, grid, smem, luts, codes, versions, out, V,
+                                          M, K, N, rows, stream);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
+// The dense kernel for `slots` slots, `pairs` of them pair groups.
+cudaError_t launch_dense(DeviceInfo* d, int slots, int pairs, dim3 grid, size_t smem,
+                         const float* luts, const uint8_t* codes, const uint8_t* versions,
+                         float* out, int V, int M, int K, int N, int rows, cudaStream_t stream) {
+#define REPRO_DENSE_SLOTS(S)                                                                  \
+  case S:                                                                                     \
+    return launch_dense_s<S>(pairs, d, grid, smem, luts, codes, versions, out, V, M, K, N, rows, \
+                             stream);
+  switch (slots) {
+    REPRO_DENSE_SLOTS(1)
+    REPRO_DENSE_SLOTS(2)
+    REPRO_DENSE_SLOTS(3)
+    REPRO_DENSE_SLOTS(4)
+    REPRO_DENSE_SLOTS(5)
+    REPRO_DENSE_SLOTS(6)
+    REPRO_DENSE_SLOTS(7)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef REPRO_DENSE_SLOTS
+}
+
 }  // namespace
 
 // form: kFormL2 (ids may be NULL: rows r = c), kFormStaged, kFormDense (ids
@@ -433,26 +669,35 @@ extern "C" int repro_pq_adc(const float* luts, const uint8_t* codes,
     if (ids == nullptr || V > 32 || K % 4 != 0 || reinterpret_cast<uintptr_t>(luts) % 16 != 0)
       return (int)cudaErrorInvalidValue;
     const size_t smem = staged_smem(V, M, K);
-    e = allow_smem(d, 0, adc_staged_kernel, smem);
+    e = allow_smem(d, kRaisedStaged, adc_staged_kernel, smem);
     if (e != cudaSuccess) return (int)e;
     adc_staged_kernel<<<B, kLanes * kStagedTile, smem, stream>>>(luts, codes, versions, ids, out,
                                                                  V, M, K, N, C);
     return (int)cudaGetLastError();
   }
-  if (form != kFormDense || ids != nullptr || (V * M * K) % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(luts) % 16 != 0)
+  if (ids != nullptr || K % 4 != 0 || reinterpret_cast<uintptr_t>(luts) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)V * M * K * sizeof(float);
-  e = allow_smem(d, 1, adc_dense_smem_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int threads = 512;
-  // one table residency per block: enough blocks per query to fill the
-  // card about twice over, never more than the rows need
-  int per_query = (2 * d->sms + B - 1) / B;
-  const int need = (N + threads - 1) / threads;
-  per_query = per_query < need ? per_query : need;
-  per_query = per_query < 1 ? 1 : per_query;
-  dim3 grid(per_query, B);
-  adc_dense_smem_kernel<<<grid, threads, smem, stream>>>(luts, codes, versions, out, V, M, K, N);
-  return (int)cudaGetLastError();
+  // one table residency per block, every block resident at once: enough
+  // blocks per query to fill the SMs, rows in whole warps' groups
+  const int per_query = B >= d->sms ? 1 : d->sms / B;
+  int rows = (N + per_query - 1) / per_query;
+  rows = (rows + 31) / 32 * 32;
+  const dim3 grid((N + rows - 1) / rows, B);
+  if (form != kFormDense && form != kFormDenseSingles) return (int)cudaErrorInvalidValue;
+  const int slots = (M + 31) / 32;
+  if (slots > kDenseMaxSlots || V > 8) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)V * slots * K * 32 * sizeof(float);
+  const bool pairs = form == kFormDense && M % 2 == 0 && reinterpret_cast<uintptr_t>(codes) % 2 == 0;
+  if (M == 96 && K == 256 && V <= 2) {  // the paper configuration: offsets at compile time
+#define REPRO_DENSE_PATH(P, VV)                                                              \
+  return (int)launch_dense_t<3, P, 1, 256, 96, VV>(d, grid, smem, luts, codes, versions, out, V, \
+                                                   M, K, N, rows, stream)
+    if (pairs && V == 2) REPRO_DENSE_PATH(1, 2);
+    if (pairs) REPRO_DENSE_PATH(1, 1);
+    if (V == 2) REPRO_DENSE_PATH(0, 2);
+    REPRO_DENSE_PATH(0, 1);
+#undef REPRO_DENSE_PATH
+  }
+  return (int)launch_dense(d, slots, pairs ? M / 64 : 0, grid, smem, luts, codes, versions, out,
+                           V, M, K, N, rows, stream);
 }

@@ -29,6 +29,10 @@ STAGED_HEADER = 128
 STAGED_MAX_V = 32
 # form codes of the C launcher
 FORMS = {"gathered_l2": 0, "gathered": 1, "dense": 2}
+# designs of the dense form that adc_form does not take (kernel.cu), timed by
+# scripts/torch_scan_kernels.py --designs
+DENSE_DESIGNS = {"singles": 3}
+DENSE_MAX_V = 8  # versions the dense kernel spreads by three ballots
 
 
 def staged_smem_bytes(V: int, M: int, K: int) -> int:
@@ -39,13 +43,40 @@ def staged_smem_bytes(V: int, M: int, K: int) -> int:
     return STAGED_HEADER + V * M * K * 4 + STAGED_TILE * stride
 
 
+def dense_subspace(slot: int, lane: int, M: int, pairs: int) -> int:
+    """The dense form's lane plan (dense_m in kernel.cu): the subspace that
+    lane ``lane`` looks up in ``slot``, or -1. The first 64 * pairs
+    subspaces go two to a lane, the rest one to a lane."""
+    if slot < 2 * pairs:
+        return 64 * (slot // 2) + 2 * lane + slot % 2
+    m = 64 * pairs + 32 * (slot - 2 * pairs) + lane
+    return m if m < M else -1
+
+
+def dense_pairs(M: int) -> int:
+    """Pair groups of the dense form's plan (2-byte code loads; M even)."""
+    return M // 64 if M % 2 == 0 else 0
+
+
+def dense_smem_bytes(V: int, M: int, K: int) -> int:
+    """Shared memory of a dense block: V tables of ceil(M/32) slots x K codes
+    x 32 lanes of f32."""
+    return V * -(-M // 32) * K * 32 * 4
+
+
+def dense_word(v: int, slot: int, code: int, lane: int, K: int, V: int) -> int:
+    """The shared-memory word of (v, slot, code) for ``lane``: its bank is the
+    lane, and a table's V versions of an entry sit side by side."""
+    return ((slot * K + code) * V + v) * 32 + lane
+
+
 def adc_form(C: int, V: int, M: int, K: int, gathered: bool) -> str:
     """The kernel form for C rows per query ('gathered', 'gathered_l2' or
     'dense'), from the shape alone."""
     if C < STAGED_MIN_ROWS:
         return "gathered_l2"
     if not gathered:
-        fits = V * M * K * 4 <= SMEM_PER_BLOCK and (V * M * K) % 4 == 0
+        fits = dense_smem_bytes(V, M, K) <= SMEM_PER_BLOCK and K % 4 == 0 and V <= DENSE_MAX_V
         return "dense" if fits else "gathered_l2"
     fits = staged_smem_bytes(V, M, K) <= SMEM_PER_BLOCK
     return "gathered" if fits and K % 4 == 0 and V <= STAGED_MAX_V else "gathered_l2"

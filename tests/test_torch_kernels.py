@@ -19,8 +19,9 @@ from repro.kernels.topk_select.ref import topk_select_ref
 from repro_torch import kernels as K
 from repro_torch.core import pq as tpq
 from repro_torch.kernels.pq_adc import ops as adc_ops
-from repro_torch.kernels.topk_select.ops import (LONG_MAX_L, LONG_MIN_CHUNK, RANK_MAX_N,
-                                                 long_chunks, topk_form)
+from repro_torch.kernels.topk_select.ops import (LONG_MAX_L, LONG_MIN_CHUNK, RADIX_MIN_CHUNK,
+                                                 RANK_MAX_N, SORT_MAX_N, kernels_per_call,
+                                                 long_chunks, radix_plan, sort_keys, topk_form)
 
 INTERP = dict(interpret=True)
 
@@ -88,6 +89,10 @@ def test_pq_encode(N, M, dsub, Kc, block):
     (3, 5000, 32, 1024),
     (2, 100, 10, 256),
     (2, 20_000, 50, None),  # the Q-Flat cut's L on a long row; too long for interpret mode
+    (2, 1414, 1250, None),  # the beam merge at k=250 (L = k' = 1250): the sort form
+    (2, 1025, 1025, None),  # L = N just past the rank form
+    (2, 20_000, 1025, None),  # the radix form, L just past the long form
+    (1, 20_000, 20_000, None),  # the radix form, L = N past one sort block: merged runs
 ])
 def test_topk_select(B, N, L, block, data):
     rng = np.random.RandomState(N + L)
@@ -225,9 +230,12 @@ def test_wrappers_count_only_kernel_launches():
     K.flat_l2_gathered(torch.zeros(1, 4), torch.zeros(3, 4), torch.zeros(1, 2, dtype=torch.int32))
     K.flat_l2(torch.zeros(2, 4), torch.zeros(3, 4))
     K.topk_select(torch.zeros(2, 3000), 20)
+    K.topk_select(torch.zeros(2, 1414), 1250)
+    K.topk_select(torch.zeros(1, 20_000), 1025)
     assert K.launch_counts() == {"pq_adc.gathered": 0, "pq_adc.gathered_l2": 0,
                                  "pq_adc.dense": 0, "topk_select.rank": 0,
-                                 "topk_select.long": 0, "topk_select.iter": 0,
+                                 "topk_select.long": 0, "topk_select.sort": 0,
+                                 "topk_select.radix": 0,
                                  "flat_l2.dense": 0, "flat_l2.dense_bf16": 0,
                                  "flat_l2.gathered": 0, "pq_encode": 0}
 
@@ -353,10 +361,21 @@ def test_adc_distance_versioned_matches_reference():
     (128, RANK_MAX_N, 10, "rank"),
     (128, RANK_MAX_N + 1, 10, "long"),
     (128, 100_000, 50, "long"),
-    (128, 100_000, LONG_MAX_L + 1, "iter"),
+    (128, 100_000, LONG_MAX_L + 1, "radix"),
+    (128, 1414, 1250, "sort"),  # the beam merge at k=250: L + W * R_slack = 1250 + 164
+    (128, 1250, 250, "long"),  # the rerank cut at k=250
+    (128, LONG_MAX_L + 1, LONG_MAX_L + 1, "sort"),
+    (128, SORT_MAX_N, 5000, "sort"),
+    (128, SORT_MAX_N + 1, 1025, "radix"),
+    (128, 100_000, 1250, "radix"),  # Q-Flat at k'=1250
+    (128, 100_000, 5000, "radix"),
+    (128, 100_000, 100_000, "radix"),
 ])
 def test_topk_form(B, N, L, form):
     assert topk_form(N, L) == form
+    if form == "sort":
+        P = sort_keys(N)
+        assert N <= P <= SORT_MAX_N and P & (P - 1) == 0 and kernels_per_call(B, N, L) == 1
 
 
 def _key(x, i):
@@ -554,3 +573,191 @@ def test_device_ms_window_rule(named, iters, per_call, whole):
     """chip_smoke.device_ms takes a profiler window only when it holds
     exactly iters x the kernels one call launches."""
     assert _chip_smoke().window_whole(named, iters, per_call) is whole
+
+
+# -- the dense form of pq_adc: bank-per-lane layout and order of addition ----
+
+
+@pytest.mark.parametrize("M", [1, 3, 8, 37, 64, 96, 100, 128, 150, 224])
+@pytest.mark.parametrize("pairs", [False, True])
+def test_adc_dense_layout(M, pairs):
+    """The dense form's lane plan gives every subspace one (slot, lane), and
+    its words are a bijection onto the staged table with lane i in bank i."""
+    npairs = adc_ops.dense_pairs(M) if pairs else 0
+    slots, K, V = -(-M // 32), 4, 2
+    seen = [adc_ops.dense_subspace(s, i, M, npairs) for s in range(slots) for i in range(32)]
+    assert sorted(m for m in seen if m >= 0) == list(range(M))
+    words = [adc_ops.dense_word(v, s, c, i, K, V) for v in range(V) for s in range(slots)
+             for c in range(K) for i in range(32)]
+    assert sorted(words) == list(range(adc_ops.dense_smem_bytes(V, M, K) // 4))
+    assert all(w % 32 == i for w, i in zip(words, [i for _ in range(V * slots * K)
+                                                  for i in range(32)]))
+
+
+def _dense_sum(luts_b, codes, versions, M, pairs):
+    """The dense form's order of addition, emulated in f32: lane i sums its
+    slots of a row in slot order from the first ((t_0 + t_1) + t_2 ...; a
+    slot with no subspace adds the staged 0), and the 32 lane partials
+    combine as a butterfly, lane distance 16 first (the reduce-scatter keeps
+    exactly those adds)."""
+    V, _, Kc = luts_b.shape
+    slots = -(-M // 32)
+    n = codes.shape[0]
+    v = np.minimum(versions, V - 1)
+    part = np.zeros((n, 32), np.float32)
+    for s in range(slots):
+        for i in range(32):
+            m = adc_ops.dense_subspace(s, i, M, pairs)
+            term = luts_b[v, m, codes[:, m]] if m >= 0 else np.zeros(n, np.float32)
+            part[:, i] = term if s == 0 else (part[:, i] + term).astype(np.float32)
+    for o in (16, 8, 4, 2, 1):
+        part = (part + part[:, np.arange(32) ^ o]).astype(np.float32)
+    return part[:, 0]
+
+
+@pytest.mark.parametrize("V,M,Kc", [(2, 96, 256), (1, 37, 16), (2, 8, 16), (2, 3, 16)])
+def test_adc_dense_sum_order(V, M, Kc):
+    """The dense form's arithmetic, emulated with and without the pair
+    groups: against repro.core.pq.adc_distance_versioned and the port's
+    plain version within 1e-5."""
+    rng = np.random.RandomState(V * 100 + M + Kc)
+    B, N = 2, 300
+    luts = rng.randn(B, V, M, Kc).astype(np.float32)
+    codes = rng.randint(0, Kc, (N, M)).astype(np.uint8)
+    versions = rng.randint(0, 2, (N,)).astype(np.uint8)  # a version past V - 1 clamps
+    plain = K.pq_adc(t(luts), t(codes), t(versions)).numpy()
+    for b in range(B):
+        want = np.asarray(rpq.adc_distance_versioned(
+            jnp.asarray(luts[b]), jnp.asarray(codes),
+            jnp.asarray(np.minimum(versions, V - 1).astype(np.uint8))))
+        for pairs in sorted({0, adc_ops.dense_pairs(M)}):
+            got = _dense_sum(luts[b], codes, versions, M, pairs)
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(got, plain[b], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("C,V,M,Kc,form", [
+    (100_000, 2, 96, 256, "dense"),  # Q-Flat at the paper configuration
+    (100_000, 1, 37, 16, "dense"),
+    (100_000, 2, 96, 6, "gathered_l2"),  # K % 4: the table's float4 staging
+    (100_000, 9, 8, 16, "gathered_l2"),  # versions past the three ballots
+    (100_000, 2, 224, 128, "dense"),  # 7 slots, 229 376 bytes
+    (100_000, 2, 256, 128, "gathered_l2"),  # 8 slots: past the block's shared memory
+])
+def test_adc_dense_form(C, V, M, Kc, form):
+    assert adc_ops.adc_form(C, V, M, Kc, False) == form
+    if form == "dense":
+        assert adc_ops.dense_smem_bytes(V, M, Kc) <= adc_ops.SMEM_PER_BLOCK
+
+
+# -- topk_select for L > 1024: the radix select and the merge of sorted runs --
+
+
+def _order_bits(x):
+    """kernel.cu's order_bits on f32: NaN above +inf, -0.0 equal to +0.0."""
+    x = np.where(x == 0, np.float32(0), x).astype(np.float32)
+    bits = x.view(np.uint32).astype(np.uint64)
+    u = np.where(bits & 0x80000000, ~bits & 0xFFFFFFFF, bits | 0x80000000)
+    return np.where(np.isnan(x), np.uint64(0xFFFFFFFF), u).astype(np.uint64)
+
+
+def _merge_runs(keys, run):
+    """topk_runs_merge_kernel's passes: a key's place is its index in its run
+    plus its rank in the paired run."""
+    L = len(keys)
+    while run < L:
+        out = np.empty_like(keys)
+        for r0 in range(0, L, 2 * run):
+            a, b = keys[r0:r0 + run], keys[r0 + run:r0 + 2 * run]
+            out[r0 + np.arange(len(a)) + np.searchsorted(b, a)] = a
+            out[r0 + np.arange(len(b)) + np.searchsorted(a, b)] = b
+        keys, run = out, 2 * run
+    return keys
+
+
+def _radix_select(row, L, min_p):
+    """The radix form emulated on one row: histogram passes until the row is
+    done, the candidates at or below the prefix, sorted in runs of P and
+    merged. Returns (positions of the L smallest, passes that counted)."""
+    N = len(row)
+    plan = radix_plan(1, N, L, min_p)
+    pb, cap = plan["pos_bits"], plan["cap"]
+    keys = (_order_bits(row) << np.uint64(pb)) | np.arange(N, dtype=np.uint64)
+    prefix, shift, below, bucket = 0, 32 + pb, 0, N
+    done, counted = N <= cap, 0
+    for _ in range(plan["passes"]):
+        if done:
+            break
+        counted += 1
+        width = min(11, shift)
+        new = shift - width
+        inb = (keys >> np.uint64(shift)) == np.uint64(prefix)
+        hist = np.bincount(((keys[inb] >> np.uint64(new)) & np.uint64((1 << width) - 1))
+                           .astype(np.int64), minlength=2048)
+        assert hist.sum() == bucket
+        cum = np.cumsum(hist)
+        dg = int(np.searchsorted(cum, L - below))  # the first bin reaching L
+        below, bucket = below + int(cum[dg] - hist[dg]), int(hist[dg])
+        prefix, shift = (prefix << width) | dg, new
+        done = below + bucket <= cap or shift == 0
+    assert done
+    cand = keys[(keys >> np.uint64(shift)) <= np.uint64(prefix)]
+    assert L <= len(cand) == below + bucket <= cap
+    P = plan["P"]
+    if plan["runs"] > 1:
+        assert len(cand) == L and plan["runs"] == -(-L // P)
+    runs = np.concatenate([np.sort(cand[i:i + P]) for i in range(0, len(cand), P)])
+    merged = _merge_runs(runs, P) if plan["runs"] > 1 else runs
+    return (merged[:L] & np.uint64((1 << pb) - 1)).astype(np.int64), counted
+
+
+@pytest.mark.parametrize("data", ["normal", "ties", "inf", "odd"])
+@pytest.mark.parametrize("N,L,min_p", [
+    (20_000, 1025, 4096), (20_000, 1025, 2048), (SORT_MAX_N + 1, 5000, 4096),
+    (20_000, 20_000, 4096), (40_000, 40_000, 4096), (100_000, 1250, 4096),
+])
+def test_topk_radix_select(N, L, min_p, data):
+    """The radix form's passes, emulated on rows of normal values, heavy ties
+    (integers and 30 % +inf), all +inf (every pass, ties past cap) and with
+    NaN, +-0.0 and -inf: the positions of a stable ascending sort cut to L,
+    for one sort (L <= P) and for merged runs (L > SORT_MAX_N)."""
+    rng = np.random.RandomState(N + L + min_p)
+    if data == "normal":
+        row = rng.randn(N).astype(np.float32)
+    elif data == "ties":
+        row = rng.randint(0, 64, N).astype(np.float32)
+        row[rng.rand(N) < 0.3] = np.inf
+    elif data == "inf":
+        row = np.full(N, np.inf, np.float32)
+    else:
+        row = rng.randn(N).astype(np.float32)
+        row[::7] = np.nan
+        row[1::3] = 0.0
+        row[2::3] = -0.0
+        row[::5] = -np.inf
+    got, counted = _radix_select(row, L, min_p)
+    np.testing.assert_array_equal(got, np.argsort(row, kind="stable")[:L])
+    if data == "inf" and L < N:  # equal values: passes past the 32 value bits split them
+        assert counted > -(-32 // 11)
+
+
+@pytest.mark.parametrize("B,N,L", [
+    (128, 100_000, 1025), (128, 100_001, 1250), (128, 100_000, 20_000), (1, 3_000_000, 5000),
+    (2, SORT_MAX_N + 1, SORT_MAX_N + 1), (4096, 20_000, 2000), (1, 50_000, 50_000),
+])
+def test_topk_radix_plan(B, N, L):
+    """The radix form's plan: chunks cover the row (multiples of 4, none
+    empty); enough passes to resolve every key bit; P holds L or runs of P
+    cover it; the launches a call makes; and the workspace holds histograms,
+    states and candidates (one buffer more for merged runs)."""
+    p = radix_plan(B, N, L)
+    assert p["chunk"] % 4 == 0 and (p["S"] - 1) * p["chunk"] < N <= p["S"] * p["chunk"]
+    assert p["chunk"] >= min(N, RADIX_MIN_CHUNK)
+    assert 2 ** p["pos_bits"] >= N > 2 ** (p["pos_bits"] - 1)
+    assert 11 * p["passes"] >= 32 + p["pos_bits"] > 11 * (p["passes"] - 1)
+    assert p["P"] & (p["P"] - 1) == 0 and p["P"] <= SORT_MAX_N and p["cap"] == max(p["P"], L)
+    assert p["runs"] * p["P"] >= L and (p["runs"] == 1) == (L <= p["P"])
+    assert 2 ** p["rounds"] >= p["runs"] > 2 ** (p["rounds"] - 1) - (p["runs"] == 1)
+    assert p["kernels"] == kernels_per_call(B, N, L) == 3 + p["passes"] + p["rounds"]
+    held = p["passes"] * B * 2048 * 4 + B * 4 + 2 * B * 24 + B * p["cap"] * 8 * (1 + (p["runs"] > 1))
+    assert held <= p["ws_bytes"] <= held + 32
