@@ -612,28 +612,64 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
     check(err_fd <= f32_limit, f"flat_l2 dense err {err_fd} > f32 limit {f32_limit}")
     check(min(err_bf16, err_tf32) > f32_limit, "the f32 limit does not reject bf16 or TF32")
     del want64
-    # ragged shapes: B and N past the 128x128 tiles, D past the 32-deep
-    # slices; D % 4 != 0 takes the 4-byte copies
-    for nq, nx, dd in ((129, 257, 100), (129, 257, 37)):
-        qr = torch.randn(nq, dd, generator=g, device=dev)
-        xr = torch.randn(nx, dd, generator=g, device=dev)
+
+    def ragged_held(qr, xr, what: str) -> list:
+        """The dense kernel on qr, xr for l2 and ip, against its plain version
+        and, within the f32 limit of these inputs, against float64 of them.
+        Returns each metric's error and limit."""
         qr64, xr64 = qr.double(), xr.double()
-        lim = (2 * math.sqrt(dd) * torch.finfo(torch.float32).eps
+        lim = (2 * math.sqrt(qr.shape[1]) * torch.finfo(torch.float32).eps
                * float((qr64 * qr64).sum(1).max() + (xr64 * xr64).sum(1).max()))
+        held = []
         for metric in ("l2", "ip"):
-            what = f"flat_l2 dense {metric} B={nq} N={nx} D={dd}"
+            case = f"{metric} {what}"
             got_r = K.flat_l2(qr, xr, metric)
             check(torch.allclose(got_r, flat_l2_ref(qr, xr, metric), rtol=2e-3, atol=2e-3),
-                  f"{what} against its plain version")
+                  f"flat_l2 dense {case} against its plain version")
             dot = qr64 @ xr64.T
             want_r = (((qr64 * qr64).sum(1)[:, None] + (xr64 * xr64).sum(1)[None] - 2 * dot)
                       .clamp_min(0) if metric == "l2" else -dot)
             err = float((got_r.double() - want_r).abs().max())
-            check(err <= lim, f"{what}: err {err} > f32 limit {lim}")
-    qb, xb = q[:16, :64].bfloat16().contiguous(), x[:64, :64].bfloat16().contiguous()
-    got_b, want_b = K.flat_l2(qb, xb), flat_l2_ref(qb, xb)
-    err_b = float((got_b - want_b).abs().max())
-    check(torch.allclose(got_b, want_b, rtol=5e-2, atol=5e-2), "flat_l2 bf16")
+            check(err <= lim, f"flat_l2 dense {case}: err {err} > f32 limit {lim}")
+            held.append(dict(case=case, max_abs_err=err, f32_limit=lim))
+        return held
+
+    # ragged shapes: B and N past the 128x128 tiles, D past the 32-deep
+    # slices; D % 4 != 0 takes the 4-byte copies
+    for nq, nx, dd in ((129, 257, 100), (129, 257, 37)):
+        ragged_held(torch.randn(nq, dd, generator=g, device=dev),
+                    torch.randn(nx, dd, generator=g, device=dev), f"B={nq} N={nx} D={dd}")
+    # bf16: two bf16 values multiply exactly in f32, so the kernel is held
+    # to the f32 limit against float64 of the bf16-rounded inputs, at the
+    # full shape and at ragged ones: B and N past the 128 x 128 tiles, D past
+    # the 64-deep steps; D % 8 != 0 (100, 37) or a pointer not 16-byte
+    # aligned takes the narrow copy path, N % 4 != 0 the 4-byte stores
+    q16, x16 = q.bfloat16(), x.bfloat16()
+    got_b = K.flat_l2(q16, x16)
+    check(torch.allclose(got_b, flat_l2_ref(q16, x16), rtol=2e-3, atol=2e-3),
+          "flat_l2 dense bf16 against its plain version")
+    q16d, x16d = q16.double(), x16.double()
+    want16 = ((q16d * q16d).sum(1)[:, None] + (x16d * x16d).sum(1)[None]
+              - 2 * (q16d @ x16d.T)).clamp_min(0)
+    del x16d
+    err_b = float((got_b.double() - want16).abs().max())
+    check(err_b <= f32_limit, f"flat_l2 dense bf16 err {err_b} > f32 limit {f32_limit}")
+    del want16, got_b
+    ragged = []
+    for nq, nx, dd, aligned in ((129, 257, 100, True), (129, 257, 37, True), (129, 257, 96, True),
+                                (129, 1000, 96, True), (129, 1000, 96, False)):
+        qr = torch.randn(nq, dd, generator=g, device=dev).bfloat16()
+        xr = torch.randn(nx, dd, generator=g, device=dev).bfloat16()
+        if not aligned:  # the same values 2 bytes past a 16-byte boundary
+            buf = torch.empty(nx * dd + 1, dtype=torch.bfloat16, device=dev)
+            buf[1:] = xr.reshape(-1)
+            xr = buf[1:].view(nx, dd)
+        ragged += ragged_held(qr, xr, f"bf16 B={nq} N={nx} D={dd}"
+                              + ("" if aligned else " x unaligned"))
+    print("flat_l2 dense bf16 against float64 of the bf16 values: "
+          f"B={B} N={N} D={D} {err_b:.3e} (limit {f32_limit:.3e}); "
+          + "; ".join(f"{r['case']} {r['max_abs_err']:.2e} (limit {r['f32_limit']:.2e})"
+                      for r in ragged), flush=True)
     rows_read = int(torch.unique(rid).numel())
     rb, rby = bound(B * D * 4 + rows_read * D * 4 + B * 50 * 8, 3 * B * 50 * D)
     # three TF32 products on the tensor cores; the f32 bound beside it
@@ -652,11 +688,19 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
         library="torch.cdist", shape=f"B={B} N={N} D={D}",
         **timed(torch, lambda: K.flat_l2(q, x), lambda: flat_l2_ref(q, x),
                 lambda: torch.cdist(q, x), 5))
-    q16, x16 = q.bfloat16(), x.bfloat16()
+    # the two routes a caller has without the bf16 kernel, on the upcast
+    # values: torch.cdist (the row's library call) and the f32 kernel
+    qf, xf = q16.float(), x16.float()
+    f32_on_bf16 = device_ms(torch, lambda: K.flat_l2(qf, xf), 5, OUR_KERNELS, 1)
+    print(f"flat_l2.dense_bf16: the f32 kernel on the upcast values, device {f32_on_bf16:.4f} "
+          f"ms/call at B={B} N={N} D={D}", flush=True)
     out["flat_l2.dense_bf16"] = dict(
-        max_abs_err=err_b, bound_ms=bfb, bound_by=bfby, shape=f"B={B} N={N} D={D} bf16",
-        **timed(torch, lambda: K.flat_l2(q16, x16), lambda: flat_l2_ref(q16, x16), None, 5))
-    del x, got_d, q16, x16
+        max_abs_err=err_b, f32_limit=f32_limit, ragged=ragged, bound_ms=bfb, bound_by=bfby,
+        library="torch.cdist on the upcast values", f32_kernel_on_upcast_ms=f32_on_bf16,
+        shape=f"B={B} N={N} D={D} bf16",
+        **timed(torch, lambda: K.flat_l2(q16, x16), lambda: flat_l2_ref(q16, x16),
+                lambda: torch.cdist(qf, xf), 5))
+    del x, got_d, q16, x16, qf, xf
 
     # -- pq_encode: an insert mini-batch, the bootstrap, the refinement ---
     # edges: each dsub the kernel templates or stages (2, 4, 8; 3, 6, 16,

@@ -400,9 +400,11 @@ class DiskANNIndex:
                         filter_words: Optional[np.ndarray] = None
                         ) -> tuple[np.ndarray, np.ndarray, QueryStats]:
         """Query-planner routing by selectivity (``mode``: auto | post | beta
-        | qflat | brute), then post-filter or β-biased graph search.
-        ``doc_filter`` is a bool mask over doc slots; ``filter_words``
-        optionally supplies it pre-packed in the uint32 bitmap layout."""
+        | qflat | brute), then post-filter or β-biased graph search. Any other
+        ``mode`` runs β-search and is reported as given in ``stats.plan``, as
+        the reference does. ``doc_filter`` is a bool mask over doc slots;
+        ``filter_words`` optionally supplies it pre-packed in the uint32
+        bitmap layout."""
         W = int(beam_width or self.cfg.beam_width)
         queries = np.asarray(queries, np.float32)
         B = len(queries)
@@ -445,7 +447,7 @@ class DiskANNIndex:
             res = smod.bucketed_batch_greedy_search(
                 neighbors, codes, versions, live, luts, self.medoid,
                 L=max(L, kprime), batch_buckets=batch_buckets, beam_width=W)
-        elif mode == "beta":  # Alg 7
+        else:  # beta (Alg 7), and any mode not named above
             fbits = filter_words if filter_words is not None else self._pack_bits(
                 np.asarray(doc_filter))
             fb = g.bitmap_from_numpy(fbits, self.device)[None].expand(len(queries), -1)
@@ -453,8 +455,6 @@ class DiskANNIndex:
                 neighbors, codes, versions, live, luts, self.medoid,
                 L=max(L, kprime), batch_buckets=batch_buckets,
                 filter_bits=fb.contiguous(), beta=beta, beam_width=W)
-        else:
-            raise ValueError(f"unknown mode {mode!r}")
         beam = res.beam_ids
         dfilt = self._t(np.asarray(doc_filter, bool))
         passes = dfilt[beam.long().clamp(min=0)] & (beam >= 0)
