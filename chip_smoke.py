@@ -43,6 +43,25 @@ Phases, each printed on its own lines; any failure exits non-zero:
  7. every kernel's launch counter (each form apart) rose during phase 4 or
     phase 6, but for the forms in OFF_PATH, which are named with the reason;
     pq_encode's launches are also counted by rows, beside each timed shape.
+    (``--profile`` then profiles a query batch and insert mini-batches.)
+ 8. updates, after every other phase: (a) on phase 4's index, 1 000
+    documents deleted in place (each call timed, p50 and p95), the
+    consolidation sweep over every row, the medoid recomputed, 8 x 128
+    queries searched (no deleted document; recall@10 over the live set
+    beside phase 4's), the first 50 deletes again on the CPU from a snapshot
+    (rows equal in 99 % of those either side touched); (b) 16 queries, 5
+    pages of k=10 each at L=100, W=4, reranked (pages disjoint, no deleted
+    document, their union against the exact top 50 >= 0.6, host ms and
+    rounds per page, 4 queries again on the CPU); (c) a durable partition:
+    a StoreProviderSet on the card with its paged tier at a quarter of its
+    pages, built through ``insert`` to 20 000 documents (halved to 10 000
+    at the least while the build is projected past 150 s), every insert
+    mini-batch and delete call an operation window, a snapshot at 10 000,
+    200 deletes and the sweep, then recovery into a fresh provider
+    (recovery_invariants, equal ids for 128 queries) and from a WAL torn in
+    its last record (reported, committed - 1 records applied). Each part's
+    launches are counted from 0 and every form it runs must launch there;
+    phase 3 holds each form at the shapes of these paths.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -105,6 +124,20 @@ OFF_PATH = {
 WIDE_K = 250  # phase 6: k' = 5k = 1250 > 1024, the widest cut a reranking caller asks for
 WIDE_REPEATS = 3  # warmed calls of each wide cut; their median is its time
 WIDE_CPU_QUERIES = 16  # queries of each wide cut also run on the CPU
+# phase 8: updates, pages and a durable partition on the built index
+DELETES, DELETE_CALL, DELETE_CPU = 1000, 100, 50  # deletes, per call, also run on the CPU
+PAGE_QUERIES, PAGES, PAGE_K, PAGE_CPU_QUERIES = 16, 5, 10, 4
+PAGE_OVERLAP_FLOOR = 0.6  # 5 pages against the exact top 50 (the reference test's floor)
+DURABLE_N, DURABLE_SNAPSHOT_AT = 20_000, 10_000  # N_durable, and the snapshot's point
+DURABLE_BUDGET_S = 150.0  # N_durable halves, to DURABLE_SNAPSHOT_AT at least, past this
+DURABLE_DELETES = 200
+# the kernel forms each part of phase 8 must launch
+UPDATE_FORMS = {
+    "delete": ("flat_l2.gathered", "topk_select.rank"),
+    "pages": ("pq_adc.gathered", "pq_adc.gathered_l2", "topk_select.rank", "flat_l2.gathered"),
+    "durable": ("pq_encode", "pq_adc.gathered_l2", "pq_adc.gathered", "topk_select.rank",
+                "flat_l2.gathered"),
+}
 
 
 def host_ms(torch, fn, iters: int) -> float:
@@ -425,9 +458,24 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
 
     gb, gby = gathered_bound(codes, versions, ids)
     db, dby = bound(N * (M + 1) + B * V * M * Kc * 4 + B * N * 4, B * N * M)
+    # a page's round (one query, W * R_slack rows) and its start node (one row)
+    luts1, ids1, start1 = luts[:1].contiguous(), ids[:1].contiguous(), start[:1].contiguous()
+    check(adc_form(C, V, M, Kc, True) == "gathered", "a page's round does not take the staged form")
+    err_p = adc_same(luts1, codes, versions, ids1, "page round B=1")
+    err_p1 = adc_same(luts1, codes, versions, start1, "page start node B=1 C=1")
+    pb, pby = gathered_bound(codes, versions, ids1)
+    page_round = dict(form="page round", shape=f"B=1 C={C} V={V} M={M} K={Kc} N={N}",
+                      bound_ms=pb, bound_by=pby, max_abs_err=err_p,
+                      **timed(torch, lambda: K.pq_adc(luts1, codes, versions, ids1),
+                              lambda: pq_adc_ref(luts1, codes, versions, ids1), None, 200))
+    sb, sby = gathered_bound(codes, versions, start1)
+    page_start = dict(form="page start node", shape=f"B=1 C=1 V={V} M={M} K={Kc} N={N}",
+                      bound_ms=sb, bound_by=sby, max_abs_err=err_p1,
+                      **timed(torch, lambda: K.pq_adc(luts1, codes, versions, start1),
+                              lambda: pq_adc_ref(luts1, codes, versions, start1), None, 200))
     out["pq_adc.gathered"] = dict(
-        max_abs_err=err_g, bound_ms=gb, bound_by=gby, edges=edges,
-        shape=f"B={B} C={C} V={V} M={M} K={Kc} N={N}",
+        max_abs_err=max(err_g, err_p), bound_ms=gb, bound_by=gby, edges=edges,
+        shape=f"B={B} C={C} V={V} M={M} K={Kc} N={N}", forms=[page_round],
         **timed(torch, lambda: K.pq_adc(luts, codes, versions, ids),
                 lambda: pq_adc_ref(luts, codes, versions, ids), None, 200))
     # the l2 form at the build's beam rounds (W=1: C = R_slack = 41 rows for
@@ -450,7 +498,7 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
         max_abs_err=max(err_b2, err_b1), start_node_max_abs_err=err_s,
         search_round_max_abs_err=err_gl, bound_ms=lb,
         bound_by=lby, shape=f"build round, two schemas B={Bb} C={Cb} V={V} M={M} K={Kc} N={N}",
-        forms=[one_schema],
+        page_start_max_abs_err=err_p1, forms=[one_schema, page_start],
         **timed(torch, lambda: K.pq_adc(luts_b, codes, versions, ids_b),
                 lambda: pq_adc_ref(luts_b, codes, versions, ids_b), None, 200))
     out["pq_adc.dense"] = dict(
@@ -458,7 +506,7 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
         bound_ms=db, bound_by=dby, shape=f"B={B} N={N} V={V} M={M} K={Kc}",
         **timed(torch, lambda: K.pq_adc(luts, codes, versions),
                 lambda: pq_adc_ref(luts, codes, versions), None, 10))
-    del luts, codes, versions, got_d, want_d, luts_b, one
+    del luts, codes, versions, got_d, want_d, luts_b, one, luts1
 
     # -- topk_select at every shape of the path, tie-heavy inputs ----------
     def topk_same(d, L, mark, what):
@@ -496,7 +544,19 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
               ("merge_k250", B, kw + C, kw, False), ("merge_k250 normal", B, kw + C, kw, False),
               ("wide", B, N, LONG_MAX_L + 1, True), ("wide normal", B, N, LONG_MAX_L + 1, True),
               ("qflat_k250", B, N, kw, True), ("wide L=5000", B, N, 5000, True),
-              ("wide L=20000", B, N, 20_000, True)]
+              ("wide L=20000", B, N, 20_000, True),
+              # a page (L=100, W=4, backup 512): the stable full sorts of the
+              # refill (L + backup) and of a round (L + W * R_slack), the
+              # backup's cut, the frontier pick, the pop and the rerank
+              ("page_refill", 1, 100 + 512, 100 + 512, False),
+              ("page_round", 1, 100 + C, 100 + C, False),
+              ("page_backup", 1, 512 + C, 512, False), ("page_frontier", 1, 100, 4, False),
+              ("page_pop", 1, 100, 100, False), ("page_rerank", 1, 10, 10, False),
+              # a delete: the c=3 closest of N_out(p) to each b, for every b
+              # of the hood at most (R_slack + R_slack^2), and each member's
+              # closest sibling
+              ("delete_splice", 41 + 41 * 41, 41, 3, False),
+              ("delete_stitch", 41, 41, 1, False)]
     for name, rows, n, L, mark in shapes:
         form = topk_form(n, L)
         d = (torch.randn(rows, n, generator=g, device=dev) if "normal" in name
@@ -677,9 +737,33 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
     f32b, _ = bound((B + N) * D * 4 + B * N * 4, 2 * B * N * D)
     bfb, bfby = bound((B + N) * D * 2 + B * N * 4, 2 * B * N * D, BF16_FLOPS)
     precision = dict(f32_limit=f32_limit, bf16_inputs_err=err_bf16, tf32_inputs_err=err_tf32)
+    gathered_forms = []
+    # a delete: every b of the hood at most (R_slack + R_slack^2) to the
+    # decoded rows of N_out(p); a page's rerank: one query, k rows
+    nout = x[:41].contiguous()
+    for what, qg, xg, ig in (
+            ("delete b to N_out(p)", x[41:41 + 41 + 41 * 41], nout,
+             torch.arange(41, dtype=torch.int32, device=dev).expand(41 + 41 * 41, 41)),
+            ("page rerank", q[:1], x, rid[:1, :10])):
+        qg, ig = qg.contiguous(), ig.contiguous()
+        got_g = K.flat_l2_gathered(qg, xg, ig)
+        check(torch.allclose(got_g, flat_l2_gathered_ref(qg, xg, ig), rtol=1e-5, atol=1e-5),
+              f"flat_l2 gathered {what} against its plain version")
+        err = float((got_g.double() - ((qg.double()[:, None] - xg.double()[ig.long()]) ** 2)
+                     .sum(-1)).abs().max())
+        check(err <= f32_limit, f"flat_l2 gathered {what}: err {err} > f32 limit {f32_limit}")
+        nb_, nc_ = ig.shape
+        gbd, gby_ = bound(nb_ * D * 4 + int(torch.unique(ig).numel()) * D * 4 + nb_ * nc_ * 8,
+                          3 * nb_ * nc_ * D)
+        gathered_forms.append(dict(
+            form=what, shape=f"B={nb_} C={nc_} D={D}", bound_ms=gbd, bound_by=gby_,
+            max_abs_err=err,
+            **timed(torch, lambda: K.flat_l2_gathered(qg, xg, ig),
+                    lambda: flat_l2_gathered_ref(qg, xg, ig), None, 200)))
     out["flat_l2.gathered"] = dict(
-        max_abs_err=err_r, f32_limit=f32_limit, bound_ms=rb, bound_by=rby,
-        shape=f"B={B} C=50 D={D}",
+        max_abs_err=max([err_r] + [f["max_abs_err"] for f in gathered_forms]),
+        f32_limit=f32_limit, bound_ms=rb, bound_by=rby, shape=f"B={B} C=50 D={D}",
+        forms=gathered_forms,
         **timed(torch, lambda: K.flat_l2_gathered(q, x, rid),
                 lambda: flat_l2_gathered_ref(q, x, rid), None, 200))
     out["flat_l2.dense"] = dict(
@@ -860,7 +944,7 @@ def main_path(torch, np, K, dev, args) -> dict:
     check(recall_wide >= RECALL_FLOOR_WIDE_RERANK,
           f"recall@10 at k'=10k {recall_wide} < {RECALL_FLOOR_WIDE_RERANK}")
     masks = {"qflat": narrow, "brute": broad}
-    return out, idx, results[0], queries[:128], gt_docs[:128], draw, masks
+    return out, idx, results[0], queries, gt_docs[:128], draw, masks
 
 
 # ---------------------------------------------------------------------------
@@ -1061,6 +1145,259 @@ def wide_phase(torch, np, K, idx, q, masks: dict, cpu, parent: str) -> tuple:
     return out, counts, turns
 
 
+# ---------------------------------------------------------------------------
+# phase 8: in-place deletes, pagination and a durable partition
+# ---------------------------------------------------------------------------
+
+
+def live_truth(torch, idx, queries, k: int):
+    """Exact top-k documents over the index's live set, on the card."""
+    import numpy as np
+
+    from repro_torch.core import recall as rec
+
+    dev = torch.device("cuda")
+    vec_t = torch.from_numpy(idx.pv.vectors).to(dev)
+    live_t = torch.from_numpy(idx.pv.live).to(dev)
+    gt = np.concatenate([rec.ground_truth(torch.from_numpy(queries[i:i + 128]).to(dev), vec_t,
+                                          live_t, k) for i in range(0, len(queries), 128)])
+    return idx.slot_to_doc[gt]
+
+
+def delete_phase(torch, np, K, idx, queries, recall_before: float) -> tuple[dict, dict]:
+    """DELETES documents deleted in place, each its own timed call, in groups
+    of DELETE_CALL; the consolidation sweep over every row; the medoid
+    recomputed; 8 x 128 queries searched (no deleted document may come back;
+    recall@10 over the live set); the first DELETE_CPU deletes again on the
+    CPU from the same state, rows compared. Returns (results, launches of
+    the deletes and the sweep)."""
+    from repro_torch.core import DiskANNIndex
+    from repro_torch.core import recall as rec
+
+    snap = idx.snapshot()
+    victims = np.random.RandomState(17).choice(idx.slot_to_doc[idx.pv.live], DELETES,
+                                               replace=False)
+    K.reset_launch_counts()
+    secs, card_rows = [], None
+    for i in range(0, DELETES, DELETE_CALL):
+        for d in victims[i:i + DELETE_CALL]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            idx.delete([int(d)])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            if len(secs) == DELETE_CPU:
+                card_rows = idx.pv.neighbors.copy()
+    t = time.perf_counter()
+    for _ in range(-(-idx.count // 1024)):
+        idx.consolidate(1024)
+    idx.recompute_medoid()
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t
+    counts = K.launch_counts()
+    dead = ~idx.pv.live[: idx.count]
+    nb = idx.pv.neighbors[: idx.count]
+    check(not dead[nb[nb >= 0]].any(), "an edge to a dead node survived the sweep")
+
+    found = np.concatenate([idx.search(queries[i:i + 128], k=10)[0]
+                            for i in range(0, len(queries), 128)])
+    check(not set(found.ravel().tolist()) & set(victims.tolist()),
+          "a deleted document came back from search")
+    recall = rec.recall_at_k(found, live_truth(torch, idx, queries, 10), 10)
+
+    cpu = DiskANNIndex(idx.cfg, idx.dim, device="cpu")
+    cpu.restore(snap)
+    for d in victims[:DELETE_CPU]:
+        cpu.delete([int(d)])
+    before = snap["neighbors"]
+    touched = (cpu.pv.neighbors != before).any(1) | (card_rows != before).any(1)
+    same = float((cpu.pv.neighbors[touched] == card_rows[touched]).all(1).mean())
+    ms = np.asarray(secs) * 1e3
+    out = dict(deletes=DELETES, p50_ms=float(np.percentile(ms, 50)),
+               p95_ms=float(np.percentile(ms, 95)), sweep_s=sweep_s,
+               recall_at_10=recall, recall_at_10_before=recall_before, medoid=idx.medoid,
+               cpu_deletes=DELETE_CPU, rows_touched=int(touched.sum()), cpu_rows_equal=same,
+               launches_per_delete={k: v / DELETES for k, v in counts.items() if v})
+    print("deletes: " + json.dumps(out), flush=True)
+    check(recall >= RECALL_FLOOR_DEFAULTS, f"recall@10 after deletes {recall} < "
+                                           f"{RECALL_FLOOR_DEFAULTS}")
+    check(same >= 0.99, f"card and CPU rows agree in only {same:.4f} of those touched")
+    return out, counts
+
+
+def page_phase(torch, np, K, idx, queries, deleted: set) -> tuple[dict, dict]:
+    """PAGE_QUERIES queries, PAGES pages of PAGE_K each (L and W of the
+    index's config, reranked): pages disjoint and free of deleted documents;
+    their union against the exact top PAGES * PAGE_K over the live set; host
+    ms and rounds per page; PAGE_CPU_QUERIES queries again on the CPU from
+    the same state."""
+    from repro_torch.core import DiskANNIndex
+
+    qs = queries[:PAGE_QUERIES]
+    K.reset_launch_counts()
+    page_ms, rounds, streams = [], [], []
+    for q in qs:
+        st = idx.start_pagination(q)
+        seen = []
+        for _ in range(PAGES):
+            prev = st
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ids, dists, st = idx.next_page(q, st, PAGE_K)
+            torch.cuda.synchronize()
+            page_ms.append((time.perf_counter() - t) * 1e3)
+            rounds.append(int(st.hops) - int(prev.hops))
+            got = ids[ids >= 0]
+            check(not set(got.tolist()) & set(np.concatenate(seen).tolist() if seen else []),
+                  "a page repeated a result")
+            check(not set(got.tolist()) & deleted, "a page returned a deleted document")
+            seen.append(ids)
+        streams.append(np.concatenate(seen))
+    counts = K.launch_counts()
+    gt = live_truth(torch, idx, qs, PAGES * PAGE_K)
+    overlap = [len(set(s[s >= 0].tolist()) & set(g.tolist())) / (PAGES * PAGE_K)
+               for s, g in zip(streams, gt)]
+    cpu = DiskANNIndex(idx.cfg, idx.dim, device="cpu")
+    cpu.restore(idx.snapshot())
+    same = []
+    for q, stream in zip(qs[:PAGE_CPU_QUERIES], streams):
+        st = cpu.start_pagination(q)
+        cpu_ids = []
+        for _ in range(PAGES):
+            ids, _, st = cpu.next_page(q, st, PAGE_K)
+            cpu_ids.append(ids)
+        same.append(np.concatenate(cpu_ids) == stream)
+    same = float(np.mean(same))
+    n_pages = PAGE_QUERIES * PAGES
+    out = dict(queries=PAGE_QUERIES, pages=PAGES, k=PAGE_K, L=idx.cfg.L_search,
+               W=idx.cfg.beam_width, overlap_mean=float(np.mean(overlap)),
+               overlap_min=float(np.min(overlap)), host_ms_per_page_p50=float(np.median(page_ms)),
+               host_ms_per_page_p95=float(np.percentile(page_ms, 95)),
+               rounds_per_page_mean=float(np.mean(rounds)),
+               rounds_first_page_mean=float(np.mean(rounds[::PAGES])), cpu_ids_equal=same,
+               launches_per_page={k: v / n_pages for k, v in counts.items() if v})
+    print("pages: " + json.dumps(out), flush=True)
+    check(out["overlap_mean"] >= PAGE_OVERLAP_FLOOR,
+          f"pages overlap the exact top {PAGES * PAGE_K} by {out['overlap_mean']:.3f} < "
+          f"{PAGE_OVERLAP_FLOOR}")
+    check(same >= 0.99, f"card and CPU page ids agree in only {same:.4f} of slots")
+    return out, counts
+
+
+def durable_phase(torch, np, K, idx_main, queries, inserts_per_s_main: float, seed: int
+                  ) -> tuple[dict, dict]:
+    """A partition on a StoreProviderSet (Bw-Tree terms, WAL, paged tier at a
+    quarter of its pages) at phase 4's widths, built through ``insert`` from
+    phase 4's first vectors, each mini-batch and each delete call an
+    operation window: snapshot at DURABLE_SNAPSHOT_AT documents, the rest
+    inserted, DURABLE_DELETES deleted, the sweep; then recovery into a fresh
+    provider (recovery_invariants, the same ids for 128 queries) and from a
+    WAL torn inside its last record."""
+    from repro_torch.core import DiskANNIndex
+    from repro_torch.store import StoreProviderSet
+    from repro_torch.store import faults
+
+    dim = idx_main.dim
+    vecs = idx_main.pv.vectors[:DURABLE_N].copy()  # slot i holds document i
+    cfg = idx_main.cfg._replace(capacity=DURABLE_N + 1024)
+
+    def provider():
+        return StoreProviderSet(cfg.capacity, cfg.R_slack, cfg.M, dim, device="cuda")
+
+    pv = provider()
+    pv.pages.set_budget(pv.pages.n_pages // 4)
+    idx = DiskANNIndex(cfg, dim, providers=pv, seed=seed)
+
+    def op(fn, *a) -> float:
+        pv.begin_op()
+        fn(*a)
+        return pv.end_op()[0]
+
+    insert_ru = []
+
+    def build(lo: int, hi: int) -> None:
+        for s in range(lo, hi, cfg.batch_size):
+            e = min(s + cfg.batch_size, hi)
+            insert_ru.append(op(idx.insert, list(range(s, e)), vecs[s:e]))
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    build(0, DURABLE_SNAPSHOT_AT)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    snap = pv.snapshot_bytes()
+    snapshot_s = time.perf_counter() - t
+    n, cut = DURABLE_N, None
+    rate = DURABLE_SNAPSHOT_AT / first_s
+    while n > DURABLE_SNAPSHOT_AT and first_s + (n - DURABLE_SNAPSHOT_AT) / rate > DURABLE_BUDGET_S:
+        n = max(n // 2, DURABLE_SNAPSHOT_AT)
+    if n < DURABLE_N:
+        cut = (f"N_durable cut to {n}: {DURABLE_N} was projected at "
+               f"{first_s + (DURABLE_N - DURABLE_SNAPSHOT_AT) / rate:.0f} s > "
+               f"{DURABLE_BUDGET_S:.0f} s")
+    t = time.perf_counter()
+    build(DURABLE_SNAPSHOT_AT, n)
+    torch.cuda.synchronize()
+    build_s = first_s + time.perf_counter() - t
+    build_counts = K.launch_counts()
+    victims = np.random.RandomState(seed + 1).choice(n, DURABLE_DELETES, replace=False)
+    delete_ru = [op(idx.delete, victims[i:i + DELETE_CALL].tolist())
+                 for i in range(0, DURABLE_DELETES, DELETE_CALL)]
+    sweep_ru = op(lambda: [idx.consolidate(1024) for _ in range(-(-idx.count // 1024))])
+    q = queries[:128]
+    ids, dists, st = idx.search(q, k=10)
+    counts = K.launch_counts()  # the build, the deletes, the sweep and one search batch
+    check(not set(ids.ravel().tolist()) & set(victims.tolist()),
+          "the durable index returned a deleted document")
+    wal = pv.wal_bytes()
+    fresh = provider()
+    t = time.perf_counter()
+    applied = fresh.recover(snap, wal)
+    recover_s = time.perf_counter() - t
+    check(applied == pv.committed, f"recovery applied {applied} of {pv.committed} records")
+    invariants = faults.recovery_invariants(fresh, pv)
+    rec = DiskANNIndex(cfg, dim, providers=fresh)
+    for name in ("schemas", "count", "medoid", "doc_to_slot", "slot_to_doc", "_graph_built"):
+        setattr(rec, name, getattr(idx, name))
+    rec_ids = rec.search(q, k=10)[0]
+    same = float((rec_ids == ids).mean())
+    check(same == 1.0, f"the recovered index returned other ids ({same:.4f} equal)")
+    torn = faults.torn_tail(wal, np.random.RandomState(seed))
+    fresh = provider()
+    applied_torn = fresh.recover(snap, torn)
+    check(fresh.recovered_torn_tail, "a WAL torn inside its last record was not reported")
+    check(applied_torn == pv.committed - 1,
+          f"a torn tail applied {applied_torn}, not {pv.committed - 1}")
+    out = dict(n=n, cut=cut, build_s=build_s, inserts_per_s=n / build_s,
+               inserts_per_s_phase4=inserts_per_s_main, snapshot_s=snapshot_s,
+               snapshot_bytes=len(snap), wal_bytes=len(wal), wal_records=pv.committed,
+               ru_per_insert=float(np.sum(insert_ru)) / n,
+               ru_per_delete=float(np.sum(delete_ru)) / DURABLE_DELETES, sweep_ru=sweep_ru,
+               recover_s=recover_s, recovery_invariants=invariants, recovered_ids_equal=same,
+               torn_tail_applied=applied_torn, budget_pages=pv.pages.budget_pages,
+               n_pages=pv.pages.n_pages, tier_hits_per_query=st.tier_hits,
+               tier_misses_per_query=st.tier_misses, pages_state=pv.pages.state(),
+               launches_per_insert={k: v / n for k, v in build_counts.items() if v})
+    print("durable: " + json.dumps(out), flush=True)
+    return out, counts
+
+
+def update_phase(torch, np, K, idx, queries, path: dict, seed: int) -> tuple[dict, dict]:
+    """Phase 8: (a) deletes, (b) pages, (c) a durable partition; each part's
+    launches counted from 0, and each form of UPDATE_FORMS launched there."""
+    deletes, c_del = delete_phase(torch, np, K, idx, queries, path["recall_at_10"])
+    deleted = set(np.setdiff1d(np.arange(path["n"]), idx.slot_to_doc[idx.pv.live]).tolist())
+    pages, c_page = page_phase(torch, np, K, idx, queries, deleted)
+    durable, c_dur = durable_phase(torch, np, K, idx, queries, path["inserts_per_s"], seed)
+    counts = {}
+    for part, c in (("delete", c_del), ("pages", c_page), ("durable", c_dur)):
+        missing = [f for f in UPDATE_FORMS[part] if c[f] <= 0]
+        check(not missing, f"phase 8 {part}: {missing} did not launch")
+        counts[part] = c
+    return dict(deletes=deletes, pages=pages, durable=durable), counts
+
+
 def run(args) -> int:
     import torch
 
@@ -1119,8 +1456,9 @@ def run(args) -> int:
         return 0
     torch.cuda.empty_cache()
 
-    # 4-7. main path, card against CPU, wide cuts, launches
-    path, idx, gpu_ids, q, gt_docs, draw, masks = main_path(torch, np, K, dev, args)
+    # 4-7. main path, card against CPU, wide cuts, launches (phase 8 below)
+    path, idx, gpu_ids, queries, gt_docs, draw, masks = main_path(torch, np, K, dev, args)
+    q = queries[:128]
     versus, cpu = cpu_compare(np, idx, gpu_ids, q, gt_docs)
     wide, wide_counts, wide_turns = wide_phase(torch, np, K, idx, q, masks, cpu, args.wide_parent)
     del cpu
@@ -1147,11 +1485,26 @@ def run(args) -> int:
                 f["launches_at_rows"] = path["pq_encode_launches_by_rows"].get(f["rows"], 0)
         line["kernels"].append(entry)
     prof = profile(torch, np, idx, q, draw, Path(args.out).parent) if args.profile else None
+
+    # 8. deletes, pages and a durable partition, after every earlier phase
+    updates, update_counts = update_phase(torch, np, K, idx, queries, path, args.seed)
+    for entry in line["kernels"]:
+        for part, c in update_counts.items():
+            entry[f"launches_{part}"] = c[entry["name"]]
+            entry["launches"] += c[entry["name"]]
+        entry["launches_per_delete"] = update_counts["delete"][entry["name"]] / DELETES
+        entry["launches_per_page"] = update_counts["pages"][entry["name"]] / (PAGE_QUERIES * PAGES)
+        entry["launches_per_durable_insert"] = updates["durable"]["launches_per_insert"].get(
+            entry["name"], 0.0)
+        print(f"launches {entry['name']}: {entry['launches_per_delete']:.2f} per delete, "
+              f"{entry['launches_per_page']:.2f} per page, "
+              f"{entry['launches_per_durable_insert']:.2f} per durable insert", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(kernels=line["kernels"], main_path=path,
                                                   card_vs_cpu=versus, wide_cuts=wide,
-                                                  wide_turns=wide_turns, profile=prof, card=card,
+                                                  wide_turns=wide_turns, profile=prof,
+                                                  updates=updates, card=card,
                                                   launch_floor_ms=floor_ms), indent=1))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
-"""Graph index configuration, start node and the packed visited bitmap: the
-port of ``repro.core.graph``.
+"""Graph index configuration and state, start node and the packed visited
+bitmap: the port of ``repro.core.graph``.
 
 Conventions (as in the reference): capacity-bounded arrays of N_max rows;
 ``neighbors`` (N_max, R_slack) int32 padded with -1; ``codes`` (N_max, M)
@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..device import DeviceLike, resolve_device
 
 
 class GraphConfig(NamedTuple):
@@ -39,6 +41,43 @@ class GraphConfig(NamedTuple):
     @property
     def R_slack(self) -> int:
         return int(self.R * self.slack)
+
+
+class GraphState(NamedTuple):
+    """The mutable index terms as dense device tensors, with the reference's
+    dtypes."""
+
+    neighbors: torch.Tensor  # (N_max, R_slack) int32, -1 padded
+    codes: torch.Tensor  # (N_max, M) uint8
+    versions: torch.Tensor  # (N_max,) uint8 PQ schema version per row
+    live: torch.Tensor  # (N_max,) bool
+    count: torch.Tensor  # () int32 high-watermark of allocated slots
+    medoid: torch.Tensor  # () int32 start node
+
+    @property
+    def capacity(self) -> int:
+        return self.neighbors.shape[0]
+
+
+def empty_state(cfg: GraphConfig, device: DeviceLike = None) -> GraphState:
+    dev = resolve_device(device)
+    return GraphState(
+        neighbors=torch.full((cfg.capacity, cfg.R_slack), -1, dtype=torch.int32, device=dev),
+        codes=torch.zeros((cfg.capacity, cfg.M), dtype=torch.uint8, device=dev),
+        versions=torch.zeros((cfg.capacity,), dtype=torch.uint8, device=dev),
+        live=torch.zeros((cfg.capacity,), dtype=torch.bool, device=dev),
+        count=torch.zeros((), dtype=torch.int32, device=dev),
+        medoid=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+
+
+def degree(state: GraphState) -> torch.Tensor:
+    """Out-degree per node."""
+    return (state.neighbors >= 0).sum(-1)
+
+
+def num_live(state: GraphState) -> torch.Tensor:
+    return state.live.sum()
 
 
 def compute_medoid(vectors: torch.Tensor, live: torch.Tensor) -> int:

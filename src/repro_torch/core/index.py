@@ -14,7 +14,9 @@ Mirrors the paper's control flow for one replica:
     vectors (§3.5, Fig 5);
   * the query planner routes by selectivity: brute force for tiny
     collections, Q-Flat below ~5000 predicate matches, graph search with
-    post-filtering or filter-aware β-search otherwise (§3.5).
+    post-filtering or filter-aware β-search otherwise (§3.5);
+  * deletes are in-place (Alg 6) with a background consolidation sweep;
+    paginated search resumes from a ``PageState`` (§3.2, Fig 3).
 
 The distance work runs on ``device`` (CUDA unless the caller passes
 ``device="cpu"``) through the port's kernels; this class sequences it and
@@ -22,8 +24,11 @@ applies term writes through the provider interface. ``restore`` takes the
 dict the reference's ``snapshot`` returns, and ``snapshot`` returns the same
 layout, so state moves between the two packages exactly.
 
-Not ported yet: delete and consolidation, pagination, and the paged
-full-precision tier (the tier hooks stay and are no-ops without it).
+Graph repairs (delete, consolidate) compute the new rows on a copy of the
+device mirror and write only the rows that changed through
+``set_neighbors``, so a durable provider logs every repair. The paged
+full-precision tier is the provider's ``pages`` (``store.StoreProviderSet``
+has one); without it the tier hooks are no-ops.
 """
 from __future__ import annotations
 
@@ -34,13 +39,19 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike
+from . import delete as dmod
 from . import flat as fmod
 from . import graph as g
 from . import insert as imod
+from . import paginate as pgmod
 from . import pq as pqmod
 from . import prune as prmod
 from . import search as smod
 from .providers import ArrayProviderSet, Context, ProviderSet
+
+# backup-queue capacity for paginated search: one value service-wide, so
+# every continuation token carries a single known shape
+PAGE_BACKUP_CAP = 512
 
 
 @dataclasses.dataclass
@@ -80,6 +91,10 @@ class DiskANNIndex:
         self._graph_built = False
         self._pending: list[int] = []  # slots awaiting first graph build
         self._requant_cursor = 0  # background re-encode progress
+        self._consolidate_cursor = 0
+        # tier touches of the most recent next_page() call (pagination has
+        # no QueryStats of its own)
+        self.last_page_tier: tuple[float, float] = (0.0, 0.0)
 
     # ------------------------------------------------------------------
     # helpers
@@ -102,7 +117,7 @@ class DiskANNIndex:
     def _next_gen(self) -> torch.Generator:
         return _split_generator(self.gen)
 
-    # -- paged vector tier: not ported; no-ops without ``pv.pages`` ------
+    # -- paged vector tier: no-ops without ``pv.pages`` -------------------
     def _touch_tier(self, slots, stats: QueryStats, B: int, admit: bool = True,
                     pin: bool = False):
         pages = getattr(self.pv, "pages", None)
@@ -347,6 +362,56 @@ class DiskANNIndex:
             pass
 
     # ------------------------------------------------------------------
+    # deletion (Alg 6) + background consolidation
+    # ------------------------------------------------------------------
+    def delete(self, doc_ids: Sequence[int], policy: str = "inplace"):
+        """Delete documents one at a time, in the order given: ``inplace``
+        rewires the graph around each (Alg 6), any other policy only marks it
+        dead (the "drop" policy). A deleted medoid is replaced."""
+        cfg = self.cfg
+        for d in doc_ids:
+            slot = self.doc_to_slot.pop(int(d), None)
+            if slot is None:
+                continue
+            self.slot_to_doc[slot] = -1
+            self.pv.set_live(self.ctx, np.asarray([slot]), False)
+            if policy == "inplace" and self._graph_built:
+                neighbors, codes, versions, live, _ = self.pv.materialize(self.ctx)
+                books = self._codebook_stack()
+                # quantized-space coordinates (§3.2) of only the rows it reads
+                new_nb = dmod.inplace_delete(
+                    neighbors, live, lambda ids: imod.decode_rows(codes, versions, books, ids),
+                    slot, R=cfg.R, R_slack=cfg.R_slack, alpha=cfg.alpha,
+                    c_replace=cfg.c_replace, metric=cfg.metric)
+                self._write_neighbor_diff(neighbors, new_nb)
+            if slot == self.medoid and self.num_live:
+                self.recompute_medoid()
+
+    def recompute_medoid(self):
+        """Start-point maintenance (FreshDiskANN practice): after heavy churn
+        the medoid should track the live distribution."""
+        if self.num_live:
+            _, _, _, live, vectors = self.pv.materialize(self.ctx)
+            self.medoid = g.compute_medoid(vectors, live)
+
+    def consolidate(self, chunk: int = 1024):
+        """One background-sweep step: clear dangling edges to dead nodes."""
+        neighbors, _, _, live, _ = self.pv.materialize(self.ctx)
+        new_nb = dmod.consolidate_chunk(neighbors, live, self._consolidate_cursor, chunk)
+        self._write_neighbor_diff(neighbors, new_nb)
+        self._consolidate_cursor = (self._consolidate_cursor + chunk) % max(self.count, 1)
+
+    def _write_neighbor_diff(self, old_nb: torch.Tensor, new_nb: torch.Tensor):
+        """Write only the rows a graph repair changed, through the provider:
+        durable providers log ``set_neighbors`` to their WAL, so recovery
+        replays the repair. The device mirror is left as it is; the rows
+        written are copied up at the next ``materialize``."""
+        changed = (old_nb != new_nb).any(1).nonzero()[:, 0]
+        if changed.numel():
+            self.pv.set_neighbors(self.ctx, changed.cpu().numpy(),
+                                  new_nb[changed].cpu().numpy())
+
+    # ------------------------------------------------------------------
     # queries (§3.5)
     # ------------------------------------------------------------------
     def search(self, queries: np.ndarray, k: int, L: Optional[int] = None,
@@ -475,6 +540,58 @@ class DiskANNIndex:
         idx = np.nonzero(mask)[0]
         np.bitwise_or.at(words, idx >> 5, np.uint32(1) << (idx & 31).astype(np.uint32))
         return words
+
+    # -- pagination (§3.2 / §3.5 Continuations) ---------------------------
+    def start_pagination(self, query: np.ndarray, L: Optional[int] = None,
+                         backup_cap: int = PAGE_BACKUP_CAP) -> pgmod.PageState:
+        L = L or self.cfg.L_search
+        _, codes, versions, _, _ = self.pv.materialize(self.ctx)
+        lut = self._luts(self._t(np.asarray(query, np.float32)[None, :]))[0]
+        return pgmod.start_pagination(self.cfg.capacity, L, backup_cap, codes, versions, lut,
+                                      self.medoid)
+
+    @staticmethod
+    def page_stats(prev: pgmod.PageState, new: pgmod.PageState, k: int,
+                   rerank: bool = True) -> QueryStats:
+        """Per-page work from the cumulative PageState counters: the quantized
+        comparisons and adjacency rows the page fetched, plus the k
+        full-precision rerank reads."""
+        return QueryStats(
+            hops=float(int(new.hops) - int(prev.hops)),
+            cmps=float(int(new.cmps) - int(prev.cmps)),
+            expansions=float(int(new.exp) - int(prev.exp)),
+            full_reads=float(k if rerank else 0),
+            plan="paginated",
+        )
+
+    def next_page(self, query: np.ndarray, state: pgmod.PageState, k: int,
+                  rerank: bool = True, beam_width: Optional[int] = None,
+                  slot_filter: Optional[np.ndarray] = None
+                  ) -> tuple[np.ndarray, np.ndarray, pgmod.PageState]:
+        """One page of k results. With ``slot_filter`` (a bool mask over doc
+        slots) non-matching slots are dropped from the page after the
+        traversal step, so the visited set still advances and later pages
+        surface matches not yet reached: a filtered page may hold fewer than
+        k rows, but the stream never skips or repeats one."""
+        neighbors, codes, versions, live, vectors = self.pv.materialize(self.ctx)
+        q = self._t(np.asarray(query, np.float32)[None, :])
+        lut = self._luts(q)[0]
+        ids, dists, state = pgmod.next_page(
+            neighbors, codes, versions, live, lut, state, k=k,
+            beam_width=int(beam_width or self.cfg.beam_width))
+        if slot_filter is not None:
+            keep = (ids >= 0) & self._t(np.asarray(slot_filter, bool))[ids.long().clamp(min=0)]
+            ids = torch.where(keep, ids, torch.full_like(ids, -1))
+            dists = torch.where(keep, dists, torch.full_like(dists, float("inf")))
+        self.last_page_tier = (0.0, 0.0)
+        if rerank:
+            tst = QueryStats()
+            pinned = self._touch_tier(ids, tst, 1, pin=True)
+            rids, rd = fmod.rerank(q, ids[None, :], vectors, k=k, metric=self.cfg.metric)
+            self._unpin_tier(pinned)
+            self.last_page_tier = (tst.tier_hits, tst.tier_misses)
+            return self._to_doc_ids(rids.cpu().numpy())[0], rd.cpu().numpy()[0], state
+        return self._to_doc_ids(ids[None, :].cpu().numpy())[0], dists.cpu().numpy(), state
 
     # ------------------------------------------------------------------
     # persistence: the same dict layout as repro.core.index.DiskANNIndex

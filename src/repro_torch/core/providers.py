@@ -12,9 +12,10 @@ rows it wrote and ``materialize`` copies only those rows to the device, so
 the upload per insert mini-batch is O(rows written), not O(capacity). The
 tensors it returns are the same either way.
 
-The paged full-precision tier (``repro.store.pages``) is not ported yet:
-this provider has no ``pages`` attribute, so the index's tier hooks are
-no-ops and tier hits and misses stay 0.
+This provider has no paged full-precision tier: without a ``pages``
+attribute the index's tier hooks are no-ops and tier hits and misses stay
+0. ``store.StoreProviderSet`` extends it with the durable terms, the WAL
+and a ``pages`` tier (``store.pages.PagedVectorStore``).
 """
 from __future__ import annotations
 
