@@ -62,6 +62,31 @@ Phases, each printed on its own lines; any failure exits non-zero:
     its last record (reported, committed - 1 records applied). Each part's
     launches are counted from 0 and every form it runs must launch there;
     phase 3 holds each form at the shapes of these paths.
+ 9. a collection, after phase 8: a ``partition.Collection`` of 4
+    StoreProviderSet partitions on the card at phase 4's widths, built
+    through ``insert`` from phase 4's first 40 000 vectors (halved to 20 000
+    at the least while the build is projected past 200 s; keys pk{i % 1024},
+    properties cat = i % 10 and tier = i % 3; build rate); 8 x 128 queries
+    through the serial ``batched_fanout_search`` and ``SpmdFanout`` (all 4
+    partitions in one stacked search) in turns, equal bit for bit (ids,
+    dists, RU, stats), p50 / p95 of each, the stacked call's first apart,
+    launches per batch of each form; 16 queries again on the CPU, each
+    partition's state restored there and merged with ``merge_topk`` (ids
+    equal in 99 % of slots); ``distributed_search_fn`` over the
+    shard-stacked partitions, equal to its per-shard composition on the
+    card; the filtered fan-out with a Q-Flat and a beta predicate (plan,
+    first call and the median of 5); 8 queries x 5 merged pages (disjoint,
+    the emitted high-water mark ascending, their union against the exact
+    top 50 >= 0.6); a ReplicaSet of 4 on partition 0 (a quorum insert of
+    100, the primary killed and failed over, a hedged ``fanout_search`` with
+    a seeded log-normal latency model, a secondary killed and rebuilt
+    through ``probe_dead``: applied == committed, ``recovery_invariants``);
+    a 1-partition collection split by 2 100 inserts (every document kept,
+    the children [lo, mid) and [mid, hi), recall@10 >= 0.8); recall@10 of
+    the fan-out >= 0.75. Its launches are counted from 0 and every form of
+    PARTITION_FORMS must launch; phase 3 holds each form at the stacked
+    shapes (B = 4 x 128 round, merge and rerank; the B=128 merge of 4 x 10).
+    With ``--profile``, one serial and one stacked batch are profiled.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -131,6 +156,23 @@ PAGE_OVERLAP_FLOOR = 0.6  # 5 pages against the exact top 50 (the reference test
 DURABLE_N, DURABLE_SNAPSHOT_AT = 20_000, 10_000  # N_durable, and the snapshot's point
 DURABLE_BUDGET_S = 150.0  # N_durable halves, to DURABLE_SNAPSHOT_AT at least, past this
 DURABLE_DELETES = 200
+# phase 9: a collection of COLL_PARTS partitions at phase 4's widths
+COLL_PARTS, COLL_KEYS = 4, 1024  # initial partitions; partition keys pk0 .. pk1023
+N_COLL, N_COLL_MIN = 40_000, 20_000  # documents (target), halved to N_COLL_MIN at the least
+# N_COLL halves while the build is projected past this: 40 000 took 154 s
+# in one run and was projected at 159 s in another (the host's speed varies),
+# and at 20 000 no partition holds the 5 000 matches that make the 60 %
+# predicate take the beta plan
+COLL_BUDGET_S = 200.0
+COLL_MAX_PER, COLL_CAPACITY = 20_000, 21_024  # no split fires during the build
+COLL_BATCHES, COLL_FILTER_REPEATS = 8, 5  # query batches of 128; warmed filtered calls
+COLL_PAGE_QUERIES, COLL_CPU_QUERIES = 8, 16  # paged queries; queries also run on the CPU
+REPLICAS, REPLICA_INSERTS = 4, 100
+SPLIT_N, SPLIT_MAX = 2_100, 2_000  # one split of a 1-partition collection
+SPLIT_RECALL_FLOOR = 0.8  # the reference test's floor
+# the forms phase 9 must launch
+PARTITION_FORMS = ("pq_adc.gathered", "pq_adc.gathered_l2", "pq_adc.dense", "topk_select.rank",
+                   "topk_select.long", "flat_l2.gathered", "pq_encode")
 # the kernel forms each part of phase 8 must launch
 UPDATE_FORMS = {
     "delete": ("flat_l2.gathered", "topk_select.rank"),
@@ -443,14 +485,14 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
                                                 f"{e['l2_max_abs_err']:.2e}" for e in edges),
           flush=True)
 
-    def gathered_bound(codes, versions, ids):
+    def gathered_bound(codes, versions, ids, nv=V):
         """Bytes of one gathered call: ids, each valid row's code bytes and
         version, each table entry its lookups touch, the output."""
         Bq, Cq = ids.shape
         ok = ids >= 0
         valid = ids[ok].long()
         bq = torch.arange(Bq, device=dev)[:, None].expand(Bq, Cq)[ok]
-        lut_idx = (((bq * V + versions[valid].long())[:, None] * M + torch.arange(M, device=dev))
+        lut_idx = (((bq * nv + versions[valid].long())[:, None] * M + torch.arange(M, device=dev))
                    * Kc + codes[valid].long())
         n_ok = int(ok.sum())
         return bound(Bq * Cq * 4 + n_ok * (M + 1) + int(torch.unique(lut_idx).numel()) * 4
@@ -473,9 +515,25 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
                       bound_ms=sb, bound_by=sby, max_abs_err=err_p1,
                       **timed(torch, lambda: K.pq_adc(luts1, codes, versions, start1),
                               lambda: pq_adc_ref(luts1, codes, versions, start1), None, 200))
+    # the partition slice's stacked round: COLL_PARTS partitions of 128
+    # lanes each over their concatenated rows, one schema (V=1)
+    Bs, Ns = COLL_PARTS * 128, COLL_PARTS * COLL_CAPACITY
+    luts_s = torch.randn(Bs, 1, M, Kc, generator=g, device=dev)
+    codes_s = torch.randint(0, Kc, (Ns, M), generator=g, device=dev, dtype=torch.uint8)
+    ver_s = torch.zeros(Ns, dtype=torch.uint8, device=dev)
+    ids_s = torch.randint(0, Ns, (Bs, C), generator=g, device=dev, dtype=torch.int32)
+    ids_s[:, ::7] = -1
+    check(adc_form(C, 1, M, Kc, True) == "gathered", "the stacked round does not take the staged form")
+    err_st = adc_same(luts_s, codes_s, ver_s, ids_s, "stacked round B=512 V=1")
+    stb, stby = gathered_bound(codes_s, ver_s, ids_s, 1)
+    stacked_round = dict(form="stacked round", shape=f"B={Bs} C={C} V=1 M={M} K={Kc} N={Ns}",
+                         bound_ms=stb, bound_by=stby, max_abs_err=err_st,
+                         **timed(torch, lambda: K.pq_adc(luts_s, codes_s, ver_s, ids_s),
+                                 lambda: pq_adc_ref(luts_s, codes_s, ver_s, ids_s), None, 200))
+    del luts_s, codes_s, ver_s, ids_s
     out["pq_adc.gathered"] = dict(
-        max_abs_err=max(err_g, err_p), bound_ms=gb, bound_by=gby, edges=edges,
-        shape=f"B={B} C={C} V={V} M={M} K={Kc} N={N}", forms=[page_round],
+        max_abs_err=max(err_g, err_p, err_st), bound_ms=gb, bound_by=gby, edges=edges,
+        shape=f"B={B} C={C} V={V} M={M} K={Kc} N={N}", forms=[page_round, stacked_round],
         **timed(torch, lambda: K.pq_adc(luts, codes, versions, ids),
                 lambda: pq_adc_ref(luts, codes, versions, ids), None, 200))
     # the l2 form at the build's beam rounds (W=1: C = R_slack = 41 rows for
@@ -556,7 +614,12 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
               # of the hood at most (R_slack + R_slack^2), and each member's
               # closest sibling
               ("delete_splice", 41 + 41 * 41, 41, 3, False),
-              ("delete_stitch", 41, 41, 1, False)]
+              ("delete_stitch", 41, 41, 1, False),
+              # the partition slice: the stacked beam merge (COLL_PARTS x
+              # 128 lanes) and distributed_search_fn's merge of COLL_PARTS
+              # shards' top 10
+              ("stacked_merge", COLL_PARTS * 128, 100 + C, 100, False),
+              ("fanout_merge", 128, COLL_PARTS * 10, 10, False)]
     for name, rows, n, L, mark in shapes:
         form = topk_form(n, L)
         d = (torch.randn(rows, n, generator=g, device=dev) if "normal" in name
@@ -744,7 +807,12 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
     for what, qg, xg, ig in (
             ("delete b to N_out(p)", x[41:41 + 41 + 41 * 41], nout,
              torch.arange(41, dtype=torch.int32, device=dev).expand(41 + 41 * 41, 41)),
-            ("page rerank", q[:1], x, rid[:1, :10])):
+            ("page rerank", q[:1], x, rid[:1, :10]),
+            # the stacked rerank: COLL_PARTS x 128 lanes over the partitions' rows
+            ("stacked rerank", q.repeat(COLL_PARTS, 1),
+             torch.randn(COLL_PARTS * COLL_CAPACITY, D, generator=g, device=dev),
+             torch.randint(0, COLL_PARTS * COLL_CAPACITY, (COLL_PARTS * B, 50), generator=g,
+                           device=dev, dtype=torch.int32))):
         qg, ig = qg.contiguous(), ig.contiguous()
         got_g = K.flat_l2_gathered(qg, xg, ig)
         check(torch.allclose(got_g, flat_l2_gathered_ref(qg, xg, ig), rtol=1e-5, atol=1e-5),
@@ -1038,32 +1106,37 @@ def wide_tree(tree: Path, state: Path) -> int:
 
 
 def profile(torch, np, idx, queries, draw, out_dir: Path) -> dict:
-    """One query batch and three insert mini-batches, each timed once on the
-    host clock without the profiler and once under torch.profiler: the time
-    the card's kernels take against that unprofiled wall time (the device's
-    busy share; the profiler itself slows the host), and the kernels that
-    take it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
+    """One query batch and three insert mini-batches, profiled (profile_runs)."""
     extra = draw(6 * idx.cfg.batch_size).cpu().numpy()
     first = idx.count
     half = 3 * idx.cfg.batch_size
+    return profile_runs(torch, {
+        "search": [lambda: idx.search(queries, k=10)] * 2,
+        "insert": [lambda: idx.insert(list(range(first, first + half)), extra[:half]),
+                   lambda: idx.insert(list(range(first + half, first + 2 * half)),
+                                      extra[half:])],
+    }, out_dir)
+
+
+def profile_runs(torch, runs: dict, out_dir: Path) -> dict:
+    """Each named pair of calls: the first timed once on the host clock
+    without the profiler, the second under torch.profiler: the time the
+    card's kernels take against that unprofiled wall time (the device's busy
+    share; the profiler itself slows the host), and the kernels that take
+    it. A table per name goes to out_dir."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
     out_dir.mkdir(parents=True, exist_ok=True)
     summary = {}
-    for name, runs in (
-        ("search", [lambda: idx.search(queries, k=10)] * 2),
-        ("insert", [lambda: idx.insert(list(range(first, first + half)), extra[:half]),
-                    lambda: idx.insert(list(range(first + half, first + 2 * half)),
-                                       extra[half:])]),
-    ):
+    for name, (unprofiled, profiled) in runs.items():
         torch.cuda.synchronize()
         t = time.perf_counter()
-        runs[0]()
+        unprofiled()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
         with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            runs[1]()
+            profiled()
             torch.cuda.synchronize()
         ka = prof.key_averages()
         (out_dir / f"profile_{name}.txt").write_text(
@@ -1398,6 +1471,356 @@ def update_phase(torch, np, K, idx, queries, path: dict, seed: int) -> tuple[dic
     return dict(deletes=deletes, pages=pages, durable=durable), counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: a collection of partitions, its fan-outs, replicas and a split
+# ---------------------------------------------------------------------------
+
+
+def sync(torch, dev) -> None:
+    """Wait for the card (phase 9 also rehearses on the CPU, where there is
+    nothing to wait for)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def collection_build(torch, dev, cfg, vecs, n_max: int, max_per: int, parts: int) -> tuple:
+    """A Collection on the card built through ``insert`` in calls of parts x
+    batch_size documents (document i: key pk{i % COLL_KEYS}, properties cat
+    = i % 10 and tier = i % 3): N_COLL_MIN first, then the rest unless the
+    whole is projected past COLL_BUDGET_S (halving, to N_COLL_MIN at the
+    least). Returns (collection, n, seconds, cut, seconds of each call)."""
+    from repro_torch.partition import Collection, CollectionConfig
+    from repro_torch.serve.predicate import property_items
+
+    col = Collection(CollectionConfig(dim=vecs.shape[1], graph=cfg,
+                                      max_vectors_per_partition=max_per,
+                                      initial_partitions=parts), device=dev)
+    step = parts * cfg.batch_size
+    call_s = []
+
+    def build(lo: int, hi: int) -> None:
+        for s in range(lo, hi, step):
+            e = min(s + step, hi)
+            t = time.perf_counter()
+            col.insert(list(range(s, e)), [f"pk{i % COLL_KEYS}" for i in range(s, e)],
+                       vecs[s:e], props=[property_items({"cat": i % 10, "tier": i % 3})
+                                         for i in range(s, e)])
+            sync(torch, dev)
+            call_s.append(time.perf_counter() - t)
+
+    first = min(N_COLL_MIN, n_max)
+    t0 = time.perf_counter()
+    build(0, first)
+    first_s = time.perf_counter() - t0
+    n, cut, rate = n_max, None, first / first_s
+    while n > first and first_s + (n - first) / rate > COLL_BUDGET_S:
+        n = max(n // 2, first)
+    if n < n_max:
+        cut = (f"N_coll cut to {n}: {n_max} was projected at "
+               f"{first_s + (n_max - first) / rate:.0f} s > {COLL_BUDGET_S:.0f} s")
+    build(first, n)
+    return col, n, time.perf_counter() - t0, cut, call_s
+
+
+def same_fanout(np, a, b) -> bool:
+    """Two fan-out results equal bit for bit: ids, dists, RU, and each
+    partition's stats but for the plan's name."""
+    stat = lambda s: (s.hops, s.cmps, s.expansions, s.full_reads, s.tier_hits, s.tier_misses)
+    return (np.array_equal(a[0], b[0]) and np.array_equal(a[1].view(np.int32), b[1].view(np.int32))
+            and a[2]["ru_per_partition"] == b[2]["ru_per_partition"]
+            and [stat(s) for s in a[2]["stats_per_partition"]]
+            == [stat(s) for s in b[2]["stats_per_partition"]])
+
+
+def shard_stack(torch, dev, parts) -> tuple:
+    """distributed_search_fn's shard-stacked arguments from built partitions."""
+    mats = [p.index.pv.materialize() for p in parts]
+    return tuple(torch.stack([m[i] for m in mats]) for i in range(5)) + (
+        torch.stack([torch.from_numpy(p.index.slot_to_doc).to(dev) for p in parts]),
+        torch.tensor([p.index.medoid for p in parts], dtype=torch.int32, device=dev),
+        torch.stack([p.index.schemas[0].codebooks for p in parts]))
+
+
+def per_shard(torch, args, q, L: int, k: int, W: int):
+    """distributed_search_fn's work one shard at a time on the card: search
+    with the shard's version-0 tables, rerank the beam's first 2k, and one
+    topk_select merge over the shards' partial results."""
+    from repro_torch.core import flat as fmod
+    from repro_torch.core import pq as pqmod
+    from repro_torch.core import search as smod
+    from repro_torch.kernels.topk_select.ops import topk_select
+
+    nb, codes, versions, live, vectors, docs, medoid, books = args
+    out_i, out_d = [], []
+    for s in range(nb.shape[0]):
+        luts = pqmod.adc_lut(pqmod.PQSchema(books[s], 0), q)[:, None].contiguous()
+        res = smod.batch_greedy_search(nb[s], codes[s], versions[s], live[s], luts,
+                                       int(medoid[s]), L=L, beam_width=W)
+        ids, d = fmod.rerank(q, res.beam_ids[:, :2 * k], vectors[s], k=k)
+        out_i.append(torch.where(ids >= 0, docs[s][ids.long().clamp(min=0)], -1))
+        out_d.append(torch.where(ids >= 0, d, float("inf")))
+    vals, pos = topk_select(torch.cat(out_d, 1).contiguous(), k)
+    return torch.cat(out_i, 1).gather(1, pos.long()), vals
+
+
+def collection_phase(torch, np, K, dev, idx_main, queries, seed: int,
+                     prof_dir: Path | None = None) -> tuple[dict, dict]:
+    """Phase 9. A Collection of COLL_PARTS partitions on StoreProviderSets
+    at phase 4's widths, built from phase 4's first N_COLL vectors; 8 batches
+    of 128 through the serial fan-out and the stacked one in turns (equal
+    bit for bit); distributed_search_fn over the shard-stacked partitions;
+    the filtered fan-out (a qflat and a beta predicate); the paged fan-out;
+    a replica set on partition 0 (quorum insert, failover, hedged fan-out,
+    a rebuild through probe_dead); a 1-partition collection split by its
+    inserts. The launches of all of it are counted from 0, and every form of
+    PARTITION_FORMS must launch; then recall against exact ground truth,
+    distributed_search_fn against its per-shard composition, and the card
+    against the CPU. With ``prof_dir``, one serial and one stacked batch
+    are profiled after the launch check (profile_runs)."""
+    from repro_torch.core import DiskANNIndex
+    from repro_torch.core import recall as rec
+    from repro_torch.core import search as smod
+    from repro_torch.partition import (ReplicaSet, SpmdFanout, distributed_search_fn,
+                                       fanout_search, paged_fanout_search, start_paged_fanout)
+    from repro_torch.partition.fanout import (batched_fanout_search,
+                                              batched_filtered_fanout_search, merge_topk)
+    from repro_torch.serve.predicate import F, property_items
+    from repro_torch.store import faults
+
+    vecs = idx_main.pv.vectors[:N_COLL + REPLICA_INSERTS].copy()  # slot i holds document i
+    cfg = idx_main.cfg._replace(capacity=COLL_CAPACITY)
+    L, W, k = cfg.L_search, cfg.beam_width, 10
+    K.reset_launch_counts()
+    col, n, build_s, cut, call_s = collection_build(torch, dev, cfg, vecs, N_COLL, COLL_MAX_PER,
+                                                    COLL_PARTS)
+    parts = col.partitions
+    check(col.splits == 0 and len(parts) == COLL_PARTS, "a split fired during the build")
+    sizes = [p.num_docs for p in parts]
+    print(f"collection: {n} documents in {build_s:.1f} s = {n / build_s:.1f} inserts/s, "
+          f"partitions {sizes}" + (f"; {cut}" if cut else ""), flush=True)
+
+    # serial and stacked fan-out, in turns; the stacked call's first apart
+    batches = [queries[i * 128:(i + 1) * 128] for i in range(COLL_BATCHES)]
+    spmd = SpmdFanout(device=dev)
+    t = time.perf_counter()
+    spmd.search(parts, batches[0], k)
+    sync(torch, dev)
+    stacked_first_s = time.perf_counter() - t
+    ser_s, stk_s, ser_runs, lat_model = [], [], [], []
+    ser_launch = {f: 0 for f in K.launch_counts()}
+    stk_launch = dict(ser_launch)
+    for qb in batches:
+        for runs, secs, launches, fn in (
+                (ser_runs, ser_s, ser_launch,
+                 lambda: batched_fanout_search(parts, qb, k, batch_buckets=smod.BATCH_BUCKETS)),
+                (None, stk_s, stk_launch, lambda: spmd.search(parts, qb, k))):
+            c0 = K.launch_counts()
+            sync(torch, dev)
+            t = time.perf_counter()
+            res = fn()
+            sync(torch, dev)
+            secs.append(time.perf_counter() - t)
+            for f, v in K.launch_counts().items():
+                launches[f] += v - c0[f]
+            if runs is not None:
+                runs.append(res)
+            else:
+                check(same_fanout(np, res, ser_runs[-1]),
+                      "the stacked fan-out differs from the serial one")
+                check(res[2]["spmd"]["partitions_in_program"] == COLL_PARTS,
+                      "a partition left the stacked call")
+        lat_model.append(ser_runs[-1][2]["service_latency_ms"])
+    ser_ms, stk_ms = np.asarray(ser_s) * 1e3, np.asarray(stk_s) * 1e3
+    ru_batch = [r[2]["ru_total"] for r in ser_runs]
+
+    # the card against the CPU: each partition's index restored on the CPU
+    snaps = [p.index.snapshot() for p in parts]
+    qc = batches[0][:COLL_CPU_QUERIES]
+    cpu_l, cpu_d = [], []
+    for snap in snaps:
+        cpu = DiskANNIndex(cfg, vecs.shape[1], device="cpu")
+        cpu.restore(snap)
+        ids, dists, _ = cpu.search(qc, k)
+        cpu_l.append(ids)
+        cpu_d.append(dists)
+    cpu_ids, _ = merge_topk(cpu_l, cpu_d, k)
+    del snaps, cpu
+    cpu_same = float((cpu_ids == ser_runs[0][0][:COLL_CPU_QUERIES]).mean())
+
+    # distributed_search_fn over the shard-stacked partitions
+    shards = shard_stack(torch, dev, parts)
+    dfn = distributed_search_fn(L=L, k=k, beam_width=W, device=dev)
+    q0 = torch.from_numpy(batches[0]).to(dev)
+    dist_s = []
+    for _ in range(3):
+        sync(torch, dev)
+        t = time.perf_counter()
+        d_ids, d_d = dfn(*shards, q0)
+        sync(torch, dev)
+        dist_s.append(time.perf_counter() - t)
+
+    # the filtered fan-out: ~10 % (Q-Flat) and ~60 % (beta) of each partition
+    preds = {"eq_cat_3": (3,), "in_cat_6": (0, 1, 2, 4, 5, 6)}  # the cat values each matches
+    filt, filt_ids = {}, {}
+    for name, cats in preds.items():
+        pred = F.eq("cat", cats[0]) if len(cats) == 1 else F.in_("cat", list(cats))
+        secs = []
+        for _ in range(1 + COLL_FILTER_REPEATS):
+            t = time.perf_counter()
+            ids, dists, info = batched_filtered_fanout_search(parts, batches[0], k, pred)
+            sync(torch, dev)
+            secs.append(time.perf_counter() - t)
+        filt[name] = dict(plan=info["plan"], first_ms=secs[0] * 1e3,
+                          ms=float(np.median(secs[1:])) * 1e3, ru=info["ru_total"])
+        filt_ids[name] = ids
+        check(info["complete"] and ids.shape == (128, k), f"filtered fan-out {name}")
+
+    # the paged fan-out: 5 pages of 10 for COLL_PAGE_QUERIES queries
+    page_ms, page_fetches, page_ru, streams = [], [], [], []
+    for qi in batches[0][:COLL_PAGE_QUERIES]:
+        st = start_paged_fanout(parts, qi)
+        seen, hwm = [], -np.inf
+        for _ in range(PAGES):
+            sync(torch, dev)
+            t = time.perf_counter()
+            ids, dists, info = paged_fanout_search(parts, qi, st, PAGE_K)
+            sync(torch, dev)
+            page_ms.append((time.perf_counter() - t) * 1e3)
+            page_fetches.append(info["pages_fetched"])
+            page_ru.append(info["ru_total"])
+            got = ids[ids >= 0]
+            check(not set(got.tolist()) & set(seen), "a merged page repeated a result")
+            check(info["emit_hwm"] >= hwm, "the emitted high-water mark went down")
+            hwm = info["emit_hwm"]
+            seen += got.tolist()
+        streams.append(seen)
+
+    # a replica set on partition 0: quorum insert, failover, hedged fan-out,
+    # a dead secondary rebuilt through probe_dead
+    p0 = parts[0]
+    sets = [ReplicaSet(p, num_replicas=REPLICAS) for p in parts]
+    rs = sets[0]
+    new = list(range(N_COLL, N_COLL + REPLICA_INSERTS))
+    t = time.perf_counter()
+    rs.insert(new, [p0.lo] * len(new), vecs[new],
+              props=[property_items({"cat": i % 10, "tier": i % 3}) for i in new])
+    sync(torch, dev)
+    quorum_insert_s = time.perf_counter() - t
+    old_primary = rs.primary
+    rs.kill(old_primary, now_s=1e9)  # killed last: not yet due for a re-probe
+    check(rs.failovers == 1 and rs.primary != old_primary and rs.replicas[rs.primary].alive,
+          "killing the primary did not fail over")
+    slow = lambda p, rr: float(np.exp(rr.normal(np.log(20.0), 0.8)))
+    _, _, hedged = fanout_search(sets, batches[-1], k, latency_model=slow, hedge_at_ms=40.0,
+                                 rng=np.random.RandomState(seed))
+    victim = next(r.rid for r in rs.replicas if r.alive and r.rid != rs.primary)
+    rs.kill(victim, now_s=0.0)
+    rebuilt = []
+    rebuild = rs.rebuild
+    rs.rebuild = lambda rid, capture=None: rebuilt.append(rebuild(rid, capture)) or rebuilt[-1]
+    t = time.perf_counter()
+    revived = rs.probe_dead(now_s=rs.reprobe_after_s)
+    sync(torch, dev)
+    rebuild_s = time.perf_counter() - t
+    check(revived == [victim] and rs.replicas[victim].alive, f"probe_dead revived {revived}")
+    check(rebuilt[0].committed == p0.providers.committed,
+          f"the rebuild applied {rebuilt[0].committed} of {p0.providers.committed} records")
+    invariants = faults.recovery_invariants(rebuilt[0], p0.providers)
+    check(rebuilt[0].device == p0.device, "the rebuilt replica is on another device")
+    del rebuilt
+
+    # a split: a 1-partition collection past its limit
+    t = time.perf_counter()
+    scol, _, split_build_s, _, split_calls = collection_build(
+        torch, dev, cfg._replace(capacity=SPLIT_MAX + 1024), vecs, SPLIT_N, SPLIT_MAX, 1)
+    check(scol.splits == 1 and len(scol.partitions) == 2, f"{scol.splits} splits, not 1")
+    mid = 1 << 31
+    check([(p.lo, p.hi) for p in scol.partitions] == [(0, mid), (mid, 1 << 32)],
+          "the split's children do not halve the range")
+    held = sorted(d for p in scol.partitions for d in p.index.slot_to_doc[p.providers.live])
+    check(held == list(range(SPLIT_N)) and scol.num_docs == SPLIT_N,
+          "the split lost or duplicated a document")
+    split_ids, _, _ = fanout_search(scol.partitions, batches[-1], k)
+    counts = K.launch_counts()  # phase 9's path ends here
+    missing = [f for f in PARTITION_FORMS if counts[f] <= 0]
+    check(not missing, f"phase 9: {missing} did not launch")
+    if prof_dir is not None:
+        spmd.search(parts, batches[0], k)  # restack after the replica's inserts, unprofiled
+    prof = None if prof_dir is None else profile_runs(torch, {
+        "fanout_serial": [lambda: batched_fanout_search(parts, batches[0], k,
+                                                        batch_buckets=smod.BATCH_BUCKETS)] * 2,
+        "fanout_stacked": [lambda: spmd.search(parts, batches[0], k)] * 2}, prof_dir)
+
+    # checks against exact ground truth, on the card
+    vec_t = torch.from_numpy(vecs[:n]).to(dev)
+    live_t = torch.ones(n, dtype=torch.bool, device=dev)
+    gt = lambda qb, live, kk: rec.ground_truth(torch.from_numpy(qb).to(dev), vec_t, live, kk)
+    gts = np.concatenate([gt(qb, live_t, k) for qb in batches])
+    recall = rec.recall_at_k(np.concatenate([r[0] for r in ser_runs]), gts, k)
+    recall_dist = rec.recall_at_k(d_ids.cpu().numpy(), gts[:128], k)
+    want_i, want_d = per_shard(torch, shards, q0, L, k, W)
+    dist_same = bool(torch.equal(d_ids, want_i) and torch.equal(d_d.view(torch.int32),
+                                                                   want_d.view(torch.int32)))
+    cat = np.arange(n) % 10
+    for name, cats in preds.items():
+        fm = torch.from_numpy(np.isin(cat, cats)).to(dev)
+        filt[name]["recall_at_10"] = rec.recall_at_k(filt_ids[name], gt(batches[0], fm, k), k)
+    gt50 = gt(batches[0][:COLL_PAGE_QUERIES], live_t, PAGES * PAGE_K)
+    overlap = [len(set(s) & set(g.tolist())) / (PAGES * PAGE_K) for s, g in zip(streams, gt50)]
+    svec = torch.from_numpy(vecs[:SPLIT_N]).to(dev)
+    split_gt = rec.ground_truth(torch.from_numpy(batches[-1]).to(dev), svec,
+                                torch.ones(SPLIT_N, dtype=torch.bool, device=dev), k)
+    split_recall = rec.recall_at_k(split_ids, split_gt, k)
+
+    per_batch = lambda c: {f: v / COLL_BATCHES for f, v in c.items() if v}
+    out = dict(
+        n=n, cut=cut, partitions=sizes, build_s=build_s, inserts_per_s=n / build_s,
+        insert_call_ms_p50=float(np.median(call_s)) * 1e3,
+        serial=dict(p50_ms=float(np.percentile(ser_ms, 50)),
+                    p95_ms=float(np.percentile(ser_ms, 95)),
+                    qps=COLL_BATCHES * 128 / float(np.sum(ser_s)),
+                    ru_per_batch=float(np.mean(ru_batch)),
+                    service_latency_ms=float(np.mean(lat_model)),
+                    launches_per_batch=per_batch(ser_launch)),
+        stacked=dict(first_ms=stacked_first_s * 1e3, p50_ms=float(np.percentile(stk_ms, 50)),
+                     p95_ms=float(np.percentile(stk_ms, 95)),
+                     qps=COLL_BATCHES * 128 / float(np.sum(stk_s)),
+                     serial_over_stacked_p50=float(np.percentile(ser_ms, 50)
+                                                   / np.percentile(stk_ms, 50)),
+                     equal_to_serial=True, launches_per_batch=per_batch(stk_launch)),
+        recall_at_10=recall, cpu_ids_equal=cpu_same, cpu_queries=COLL_CPU_QUERIES,
+        distributed=dict(recall_at_10=recall_dist, first_ms=dist_s[0] * 1e3,
+                         ms=float(np.median(dist_s[1:])) * 1e3, equal_to_per_shard=dist_same),
+        filtered=filt,
+        paged=dict(queries=COLL_PAGE_QUERIES, pages=PAGES, k=PAGE_K,
+                   ms_p50=float(np.percentile(page_ms, 50)),
+                   ms_p95=float(np.percentile(page_ms, 95)),
+                   first_page_ms_mean=float(np.mean(page_ms[::PAGES])),
+                   fetches_per_page=float(np.mean(page_fetches)),
+                   ru_per_page=float(np.mean(page_ru)),
+                   overlap_mean=float(np.mean(overlap)), overlap_min=float(np.min(overlap))),
+        replicas=dict(replicas=REPLICAS, quorum_insert_ms=quorum_insert_s * 1e3,
+                      failovers=rs.failovers, hedges=hedged["hedges"],
+                      hedge_ru=hedged["hedge_ru"], ru_total=hedged["ru_total"],
+                      client_latency_ms=hedged["client_latency_ms"], rebuild_s=rebuild_s,
+                      wal_records=p0.providers.committed, recovery_invariants=invariants),
+        split=dict(n=SPLIT_N, max_per=SPLIT_MAX, build_s=split_build_s,
+                   split_call_s=float(max(split_calls)), recall_at_10=split_recall,
+                   partitions=[p.num_docs for p in scol.partitions]),
+        launches=counts, profile=prof,
+    )
+    print("collection: " + json.dumps(out), flush=True)
+    check(recall >= RECALL_FLOOR_DEFAULTS, f"fan-out recall@10 {recall} < {RECALL_FLOOR_DEFAULTS}")
+    check(dist_same, "distributed_search_fn differs from its per-shard composition")
+    check(out["paged"]["overlap_mean"] >= PAGE_OVERLAP_FLOOR,
+          f"merged pages overlap the exact top {PAGES * PAGE_K} by "
+          f"{out['paged']['overlap_mean']:.3f} < {PAGE_OVERLAP_FLOOR}")
+    check(split_recall >= SPLIT_RECALL_FLOOR,
+          f"recall@10 after the split {split_recall} < {SPLIT_RECALL_FLOOR}")
+    check(cpu_same >= 0.99, f"card and CPU fan-out ids agree in only {cpu_same:.4f} of slots")
+    return out, counts
+
+
 def run(args) -> int:
     import torch
 
@@ -1499,13 +1922,28 @@ def run(args) -> int:
         print(f"launches {entry['name']}: {entry['launches_per_delete']:.2f} per delete, "
               f"{entry['launches_per_page']:.2f} per page, "
               f"{entry['launches_per_durable_insert']:.2f} per durable insert", flush=True)
+    # 9. a collection: its fan-outs, replicas and a split
+    collection, coll_counts = collection_phase(
+        torch, np, K, dev, idx, queries, args.seed,
+        Path(args.out).parent if args.profile else None)
+    for entry in line["kernels"]:
+        name = entry["name"]
+        entry["launches_collection"] = coll_counts[name]
+        entry["launches"] += coll_counts[name]
+        for way in ("serial", "stacked"):
+            entry[f"launches_per_fanout_batch_{way}"] = (
+                collection[way]["launches_per_batch"].get(name, 0.0))
+        print(f"launches {name}: {coll_counts[name]} in phase 9, per fan-out batch "
+              f"{entry['launches_per_fanout_batch_serial']:.1f} serial, "
+              f"{entry['launches_per_fanout_batch_stacked']:.1f} stacked", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(kernels=line["kernels"], main_path=path,
                                                   card_vs_cpu=versus, wide_cuts=wide,
                                                   wide_turns=wide_turns, profile=prof,
-                                                  updates=updates, card=card,
-                                                  launch_floor_ms=floor_ms), indent=1))
+                                                  updates=updates, collection=collection,
+                                                  card=card, launch_floor_ms=floor_ms),
+                                             indent=1))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -27,8 +27,9 @@ layout, so state moves between the two packages exactly.
 Graph repairs (delete, consolidate) compute the new rows on a copy of the
 device mirror and write only the rows that changed through
 ``set_neighbors``, so a durable provider logs every repair. The paged
-full-precision tier is the provider's ``pages`` (``store.StoreProviderSet``
-has one); without it the tier hooks are no-ops.
+full-precision tier is the provider's ``pages`` (every ``ArrayProviderSet``
+has one, fully resident unless given a budget); a provider without it makes
+the tier hooks no-ops.
 """
 from __future__ import annotations
 
@@ -314,6 +315,9 @@ class DiskANNIndex:
         rows = np.full((len(nodes), cfg.R_slack), -1, np.int32)
         rows[:, : cfg.R] = pruned
         self.pv.set_neighbors(self.ctx, nodes, rows)
+        # the reference writes each pruned row with a call of its own: its
+        # write epoch advances once per node
+        self.pv.write_count += len(nodes) - 1
 
     def _replace_one(self, doc_id: int, vec: np.ndarray):
         slot = self.doc_to_slot[doc_id]
@@ -410,6 +414,9 @@ class DiskANNIndex:
         if changed.numel():
             self.pv.set_neighbors(self.ctx, changed.cpu().numpy(),
                                   new_nb[changed].cpu().numpy())
+        # the reference ends every repair with a whole-cache invalidation:
+        # one more write epoch, so the two packages count alike
+        self.pv.write_count += 1
 
     # ------------------------------------------------------------------
     # queries (§3.5)

@@ -12,10 +12,14 @@ rows it wrote and ``materialize`` copies only those rows to the device, so
 the upload per insert mini-batch is O(rows written), not O(capacity). The
 tensors it returns are the same either way.
 
-This provider has no paged full-precision tier: without a ``pages``
-attribute the index's tier hooks are no-ops and tier hits and misses stay
-0. ``store.StoreProviderSet`` extends it with the durable terms, the WAL
-and a ``pages`` tier (``store.pages.PagedVectorStore``).
+Like the reference's, every provider carries the paged full-precision tier
+(``pages``, a ``store.pages.PagedVectorStore`` fully resident until given a
+budget, so the index counts tier hits and misses at rerank) and a
+``write_count`` epoch: one per setter call and one per whole-array
+invalidation, whatever the rows a call marks. Caches of stacked provider
+arrays (``partition.fanout.SpmdFanout``) are stamped with it.
+``store.StoreProviderSet`` extends this class with the durable terms and the
+WAL.
 """
 from __future__ import annotations
 
@@ -63,14 +67,21 @@ class ArrayProviderSet:
 
     def __init__(self, capacity: int, R_slack: int, M: int, dim: int,
                  device: DeviceLike = None):
+        # deferred import: store.provider subclasses this module, so a
+        # top-level import of the store package would be circular
+        from ..store.pages import PagedVectorStore
+
         self.device = resolve_device(device)
         self.neighbors = np.full((capacity, R_slack), -1, np.int32)
         self.codes = np.zeros((capacity, M), np.uint8)
         self.versions = np.zeros((capacity,), np.uint8)
         self.live = np.zeros((capacity,), bool)
         self.vectors = np.zeros((capacity, dim), np.float32)
+        # the paged tier's residency ledger: budget None keeps every page resident
+        self.pages = PagedVectorStore(capacity, dim)
         self._mirror: dict[str, torch.Tensor] = {}
         self._pending: dict[str, list[np.ndarray]] = {f: [] for f in _FIELDS}
+        self.write_count = 0
 
     def barrier(self, name: str) -> None:
         """Named crash-barrier hook; a no-op for memory-backed terms."""
@@ -80,9 +91,15 @@ class ArrayProviderSet:
         """Whole-array invalidation: the next ``materialize`` uploads all."""
         self._mirror = {}
         self._pending = {f: [] for f in _FIELDS}
+        self.write_count += 1
 
-    def _wrote(self, field: str, ids) -> None:
-        self._pending[field].append(np.asarray(ids, np.int64).reshape(-1))
+    def _wrote(self, fields: tuple, ids) -> None:
+        """One setter call: its rows of ``fields`` go up at the next
+        ``materialize``, and the write epoch advances once."""
+        rows = np.asarray(ids, np.int64).reshape(-1)
+        for f in fields:
+            self._pending[f].append(rows)
+        self.write_count += 1
 
     def materialize(self, ctx: Context = Context()):
         """Device tensors (neighbors, codes, versions, live, vectors), brought
@@ -105,7 +122,7 @@ class ArrayProviderSet:
 
     def set_neighbors(self, ctx: Context, ids, rows):
         self.neighbors[np.asarray(ids)] = rows
-        self._wrote("neighbors", ids)
+        self._wrote(("neighbors",), ids)
 
     def append_neighbors(self, ctx: Context, node: int, new_ids):
         """Blind incremental append (the Bw-Tree forward-term fast path)."""
@@ -113,7 +130,7 @@ class ArrayProviderSet:
         deg = int((row >= 0).sum())
         n = min(len(new_ids), row.shape[0] - deg)
         row[deg: deg + n] = new_ids[:n]
-        self._wrote("neighbors", [node])
+        self._wrote(("neighbors",), [node])
         return n  # how many fit; caller prunes on overflow
 
     # -- quantized terms ---------------------------------------------------
@@ -125,8 +142,7 @@ class ArrayProviderSet:
         ids = np.asarray(ids)
         self.codes[ids] = codes
         self.versions[ids] = versions
-        self._wrote("codes", ids)
-        self._wrote("versions", ids)
+        self._wrote(("codes", "versions"), ids)
 
     # -- full-precision vectors (document store role) ----------------------
     def get_full(self, ctx: Context, ids):
@@ -134,8 +150,8 @@ class ArrayProviderSet:
 
     def set_full(self, ctx: Context, ids, vecs):
         self.vectors[np.asarray(ids)] = vecs
-        self._wrote("vectors", ids)
+        self._wrote(("vectors",), ids)
 
     def set_live(self, ctx: Context, ids, value: bool):
         self.live[np.asarray(ids)] = value
-        self._wrote("live", ids)
+        self._wrote(("live",), ids)

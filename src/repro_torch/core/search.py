@@ -99,7 +99,7 @@ def batch_greedy_search(
     versions: torch.Tensor,  # (N,) uint8
     live: torch.Tensor,  # (N,) bool
     luts: torch.Tensor,  # (B, V, M, K) f32
-    start: int,
+    start,  # int: one start node for every lane, or (B,) int32: one per lane
     *,
     L: int,
     max_hops: int = 0,
@@ -109,7 +109,9 @@ def batch_greedy_search(
     beam_width: int = 1,
 ) -> SearchResult:
     """Lockstep greedy search for a query batch (the reference's vmapped
-    ``greedy_search``), one round per loop iteration."""
+    ``greedy_search``), one round per loop iteration. A start per lane lets
+    lanes of different graphs share the rounds: the graphs stacked into one
+    array, each lane starting at its own graph's entry point."""
     W = int(beam_width)
     if not 1 <= W <= L:
         raise ValueError(f"beam_width {W} must be in [1, L={L}]")
@@ -122,10 +124,15 @@ def batch_greedy_search(
     cap = neighbors.shape[0]
     luts = luts.contiguous()
 
-    start_ids = torch.full((B, 1), int(start), dtype=torch.int32, device=dev)
+    if isinstance(start, torch.Tensor):
+        if start.shape != (B,):
+            raise ValueError(f"start per lane must be ({B},), got {tuple(start.shape)}")
+        start_ids = start.to(device=dev, dtype=torch.int32).reshape(B, 1)
+    else:
+        start_ids = torch.full((B, 1), int(start), dtype=torch.int32, device=dev)
     start_d = pq_adc(luts, codes, versions, start_ids)[:, 0]
     ids = torch.full((B, L), -1, dtype=torch.int32, device=dev)
-    ids[:, 0] = int(start)
+    ids[:, 0] = start_ids[:, 0]
     dists = torch.full((B, L), INF, dtype=torch.float32, device=dev)
     dists[:, 0] = start_d
     expanded = torch.ones((B, L), dtype=torch.bool, device=dev)
@@ -224,13 +231,16 @@ def bucketed_batch_greedy_search(neighbors, codes, versions, live, luts, start, 
                                  max_hops: int = 0, visited_cap: int = 0,
                                  filter_bits: Optional[torch.Tensor] = None,
                                  beta: float = 1.0, beam_width: int = 1) -> SearchResult:
-    """``batch_greedy_search`` padded to a batch bucket, sliced back after."""
+    """``batch_greedy_search`` padded to a batch bucket, sliced back after.
+    A start per lane pads like the tables."""
     B = luts.shape[0]
     bucket = next_bucket(B, batch_buckets)
     if bucket != B:
         luts = pad_batch(luts, bucket)
         if filter_bits is not None:
             filter_bits = pad_batch(filter_bits, bucket)
+        if isinstance(start, torch.Tensor):
+            start = pad_batch(start, bucket)
     res = batch_greedy_search(
         neighbors, codes, versions, live, luts, start, L=L, max_hops=max_hops,
         visited_cap=visited_cap, filter_bits=filter_bits, beta=beta, beam_width=beam_width)

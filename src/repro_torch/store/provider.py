@@ -19,10 +19,8 @@ WAL entries hold numpy arrays, never tensors. Writes inside a ``begin_op``
 / ``end_op`` window commit atomically at ``end_op``; a crash in between
 leaves no trace of the interrupted operation in the log.
 
-The provider carries the paged full-precision tier (``pages``, a
-``PagedVectorStore``, fully resident until given a budget), as the
-reference's providers do, so the index counts tier hits and misses at
-rerank.
+The paged full-precision tier (``pages``) comes from ``ArrayProviderSet``,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -34,7 +32,6 @@ from ..device import DeviceLike
 from ..core.providers import ArrayProviderSet, Context
 from . import codec as storecodec
 from .bwtree import BwTree
-from .pages import PagedVectorStore
 from .ru import OpCounters, RUConfig, RUMeter
 from .terms import TermCodec, merge_adjacency
 
@@ -56,8 +53,6 @@ class StoreProviderSet(ArrayProviderSet):
         device: DeviceLike = None,
     ):
         super().__init__(capacity, R_slack, M, dim, device=device)
-        # the paged full-precision tier: budget None keeps every page resident
-        self.pages = PagedVectorStore(capacity, dim)
         self._cache_pages = cache_pages
         self.tree = BwTree(merge_fn=merge_adjacency, cache_pages=cache_pages)
         self.codec = TermCodec(path)
