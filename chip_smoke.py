@@ -64,9 +64,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
     phase 3 holds each form at the shapes of these paths.
  9. a collection, after phase 8: a ``partition.Collection`` of 4
     StoreProviderSet partitions on the card at phase 4's widths, built
-    through ``insert`` from phase 4's first 40 000 vectors (halved to 20 000
-    at the least while the build is projected past 200 s; keys pk{i % 1024},
-    properties cat = i % 10 and tier = i % 3; build rate); 8 x 128 queries
+    through a ``serve.VectorCollectionService``'s ``upsert`` (the engine's
+    ingest queue, one collection ``insert`` of 400 documents a call) from
+    phase 4's first 40 000 vectors (halved to 20 000 at the least while the
+    build is projected past 200 s; keys pk{i % 1024}, documents {id, cat =
+    i % 10, tier = i % 3}; build rate); 8 x 128 queries
     through the serial ``batched_fanout_search`` and ``SpmdFanout`` (all 4
     partitions in one stacked search) in turns, equal bit for bit (ids,
     dists, RU, stats), p50 / p95 of each, the stacked call's first apart,
@@ -87,6 +89,31 @@ Phases, each printed on its own lines; any failure exits non-zero:
     PARTITION_FORMS must launch; phase 3 holds each form at the stacked
     shapes (B = 4 x 128 round, merge and rerank; the B=128 merge of 4 x 10).
     With ``--profile``, one serial and one stacked batch are profiled.
+10. the service, after phase 9, on phase 9's collection: 1 024 of phase 4's
+    queries through ``engine.submit_query`` (seeded Poisson arrivals offered
+    far above what the card serves, so micro-batches of 16 form from a
+    backlog) and ``drain``, in turns of 256 in the serial and the stacked
+    (``spmd``) dispatch modes: responses equal bit for bit across the modes,
+    wall ms per micro-batch (host clock, card synced) by bucket, QPS,
+    launches per served query, the launch signatures flat after each
+    bucket's first batch, one bucket against a direct
+    ``batched_fanout_search``, recall@10 >= 0.75 (halved to 256 queries
+    while projected past SERVE_BUDGET_S / 2); 256 queries at max_batch 64 in
+    each mode; 64 single ``svc.query`` calls; 16 exact queries as one
+    micro-batch on the partitions' device mirrors (the mirrors unchanged,
+    ids equal to exact ground truth); the filtered plans (phase 9's plans,
+    first call and the median of 5); 8 queries x 5 pages through
+    ``query_page`` with every token through bytes and decoded onto the card
+    (disjoint, >= 0.6 of the exact top 50, a token decoded again equal to
+    itself); a throttled tenant, a deadline of 0 and a degraded partition;
+    1 000 documents upserted while 512 queries flow (inserts/s, recall@10
+    within 0.01); 16 requests again on the CPU from the collection's state
+    carried across (ids equal in 99 % of slots, statuses equal, RU within
+    1 %). Every form of SERVE_FORMS must launch, counted from 0; phase 3
+    holds each form at the serving shapes (B=16 and 4 x 16 rounds, merges
+    and reranks; the exact scan B=16 N=21 024 and its cut). With
+    ``--profile``, one micro-batch of 16 is profiled in each mode. No time
+    the engine models on its SimClock is printed as a card time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -173,6 +200,20 @@ SPLIT_RECALL_FLOOR = 0.8  # the reference test's floor
 # the forms phase 9 must launch
 PARTITION_FORMS = ("pq_adc.gathered", "pq_adc.gathered_l2", "pq_adc.dense", "topk_select.rank",
                    "topk_select.long", "flat_l2.gathered", "pq_encode")
+# phase 10: the serving engine and the service over phase 9's collection
+SERVE_BATCH, SERVE_WIDE_BATCH = 16, 64  # the engine's default max_batch; the top bucket
+SERVE_QUERIES, SERVE_QUERIES_MIN, SERVE_TURN = 1024, 256, 256  # micro-batched queries, in turns
+# the micro-batched queries halve (to SERVE_QUERIES_MIN at the least) while
+# projected past half of this; the rest of the phase takes about as long again
+SERVE_BUDGET_S = 120.0
+SERVE_RATE_QPS = 100_000.0  # offered far above what the card serves: a backlog forms the batches
+SERVE_WIDE, SERVE_SINGLE, SERVE_EXACT = 256, 64, 16  # queries at max_batch 64; single; exact
+SERVE_INGEST, SERVE_INGEST_QUERIES = 1000, 512  # documents upserted while queries flow
+SERVE_NEW_BASE = 1_000_000  # the upserted documents' first id
+SERVE_CPU_REQUESTS = 16
+# the forms phase 10 must launch
+SERVE_FORMS = ("pq_adc.gathered", "pq_adc.gathered_l2", "pq_adc.dense", "topk_select.rank",
+               "topk_select.long", "flat_l2.gathered", "flat_l2.dense", "pq_encode")
 # the kernel forms each part of phase 8 must launch
 UPDATE_FORMS = {
     "delete": ("flat_l2.gathered", "topk_select.rank"),
@@ -531,9 +572,30 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
                          **timed(torch, lambda: K.pq_adc(luts_s, codes_s, ver_s, ids_s),
                                  lambda: pq_adc_ref(luts_s, codes_s, ver_s, ids_s), None, 200))
     del luts_s, codes_s, ver_s, ids_s
+    # the service's micro-batch (phase 10): a round of SERVE_BATCH lanes on one
+    # partition's rows, and the stacked round of COLL_PARTS x SERVE_BATCH lanes
+    serve_rounds = []
+    for what, nb, nr in (("serving round", SERVE_BATCH, COLL_CAPACITY),
+                         ("stacked serving round", COLL_PARTS * SERVE_BATCH,
+                          COLL_PARTS * COLL_CAPACITY)):
+        sl = torch.randn(nb, 1, M, Kc, generator=g, device=dev)
+        sc = torch.randint(0, Kc, (nr, M), generator=g, device=dev, dtype=torch.uint8)
+        sv = torch.zeros(nr, dtype=torch.uint8, device=dev)
+        si = torch.randint(0, nr, (nb, C), generator=g, device=dev, dtype=torch.int32)
+        si[:, ::7] = -1
+        check(adc_form(C, 1, M, Kc, True) == "gathered", f"the {what} does not take the staged form")
+        err_sr = adc_same(sl, sc, sv, si, f"{what} B={nb}")
+        srb, srby = gathered_bound(sc, sv, si, 1)
+        serve_rounds.append(dict(form=what, shape=f"B={nb} C={C} V=1 M={M} K={Kc} N={nr}",
+                                 bound_ms=srb, bound_by=srby, max_abs_err=err_sr,
+                                 **timed(torch, lambda: K.pq_adc(sl, sc, sv, si),
+                                         lambda: pq_adc_ref(sl, sc, sv, si), None, 200)))
+        del sl, sc, sv, si
     out["pq_adc.gathered"] = dict(
-        max_abs_err=max(err_g, err_p, err_st), bound_ms=gb, bound_by=gby, edges=edges,
-        shape=f"B={B} C={C} V={V} M={M} K={Kc} N={N}", forms=[page_round, stacked_round],
+        max_abs_err=max([err_g, err_p, err_st] + [f["max_abs_err"] for f in serve_rounds]),
+        bound_ms=gb, bound_by=gby, edges=edges,
+        shape=f"B={B} C={C} V={V} M={M} K={Kc} N={N}",
+        forms=[page_round, stacked_round] + serve_rounds,
         **timed(torch, lambda: K.pq_adc(luts, codes, versions, ids),
                 lambda: pq_adc_ref(luts, codes, versions, ids), None, 200))
     # the l2 form at the build's beam rounds (W=1: C = R_slack = 41 rows for
@@ -619,7 +681,15 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
               # 128 lanes) and distributed_search_fn's merge of COLL_PARTS
               # shards' top 10
               ("stacked_merge", COLL_PARTS * 128, 100 + C, 100, False),
-              ("fanout_merge", 128, COLL_PARTS * 10, 10, False)]
+              ("fanout_merge", 128, COLL_PARTS * 10, 10, False),
+              # the service (phase 10): a micro-batch of SERVE_BATCH at the
+              # engine's L = 5k = 50 (merge, frontier, rerank cut), its
+              # stacked merge, and the exact plan's cut over one partition
+              ("serve_merge", SERVE_BATCH, 50 + C, 50, False),
+              ("serve_frontier", SERVE_BATCH, 50, 4, False),
+              ("serve_rerank", SERVE_BATCH, 50, 10, True),
+              ("serve_stacked_merge", COLL_PARTS * SERVE_BATCH, 50 + C, 50, False),
+              ("serve_exact", SERVE_BATCH, COLL_CAPACITY, 10, True)]
     for name, rows, n, L, mark in shapes:
         form = topk_form(n, L)
         d = (torch.randn(rows, n, generator=g, device=dev) if "normal" in name
@@ -804,15 +874,23 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
     # a delete: every b of the hood at most (R_slack + R_slack^2) to the
     # decoded rows of N_out(p); a page's rerank: one query, k rows
     nout = x[:41].contiguous()
+    xs = torch.randn(COLL_PARTS * COLL_CAPACITY, D, generator=g, device=dev)
     for what, qg, xg, ig in (
             ("delete b to N_out(p)", x[41:41 + 41 + 41 * 41], nout,
              torch.arange(41, dtype=torch.int32, device=dev).expand(41 + 41 * 41, 41)),
             ("page rerank", q[:1], x, rid[:1, :10]),
             # the stacked rerank: COLL_PARTS x 128 lanes over the partitions' rows
-            ("stacked rerank", q.repeat(COLL_PARTS, 1),
-             torch.randn(COLL_PARTS * COLL_CAPACITY, D, generator=g, device=dev),
+            ("stacked rerank", q.repeat(COLL_PARTS, 1), xs,
              torch.randint(0, COLL_PARTS * COLL_CAPACITY, (COLL_PARTS * B, 50), generator=g,
-                           device=dev, dtype=torch.int32))):
+                           device=dev, dtype=torch.int32)),
+            # the service's micro-batch (phase 10): one partition's rows, and
+            # the stacked rerank of COLL_PARTS x SERVE_BATCH lanes
+            ("serving rerank", q[:SERVE_BATCH], xs[:COLL_CAPACITY],
+             torch.randint(0, COLL_CAPACITY, (SERVE_BATCH, 50), generator=g, device=dev,
+                           dtype=torch.int32)),
+            ("stacked serving rerank", q[:SERVE_BATCH].repeat(COLL_PARTS, 1), xs,
+             torch.randint(0, COLL_PARTS * COLL_CAPACITY, (COLL_PARTS * SERVE_BATCH, 50),
+                           generator=g, device=dev, dtype=torch.int32))):
         qg, ig = qg.contiguous(), ig.contiguous()
         got_g = K.flat_l2_gathered(qg, xg, ig)
         check(torch.allclose(got_g, flat_l2_gathered_ref(qg, xg, ig), rtol=1e-5, atol=1e-5),
@@ -834,8 +912,29 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
         forms=gathered_forms,
         **timed(torch, lambda: K.flat_l2_gathered(q, x, rid),
                 lambda: flat_l2_gathered_ref(q, x, rid), None, 200))
+    # the exact plan of the service (phase 10): a micro-batch against one
+    # partition's rows
+    qe, xe = q[:SERVE_BATCH].contiguous(), xs[:COLL_CAPACITY]
+    got_e = K.flat_l2(qe, xe)
+    check(torch.allclose(got_e, flat_l2_ref(qe, xe), rtol=2e-3, atol=2e-3),
+          "flat_l2 dense exact scan against its plain version")
+    qe64, xe64 = qe.double(), xe.double()
+    err_e = float((got_e.double() - ((qe64 * qe64).sum(1)[:, None] + (xe64 * xe64).sum(1)[None]
+                                     - 2 * (qe64 @ xe64.T)).clamp_min(0)).abs().max())
+    lim_e = (2 * math.sqrt(D) * torch.finfo(torch.float32).eps
+             * float((qe64 * qe64).sum(1).max() + (xe64 * xe64).sum(1).max()))
+    check(err_e <= lim_e, f"flat_l2 dense exact scan err {err_e} > f32 limit {lim_e}")
+    del qe64, xe64, got_e
+    eb_, eby_ = bound((SERVE_BATCH + COLL_CAPACITY) * D * 4 + SERVE_BATCH * COLL_CAPACITY * 4,
+                      3 * 2 * SERVE_BATCH * COLL_CAPACITY * D, TF32_FLOPS)
+    exact_scan = dict(form="serving exact scan", shape=f"B={SERVE_BATCH} N={COLL_CAPACITY} D={D}",
+                      bound_ms=eb_, bound_by=eby_, max_abs_err=err_e, f32_limit=lim_e,
+                      **timed(torch, lambda: K.flat_l2(qe, xe), lambda: flat_l2_ref(qe, xe),
+                              lambda: torch.cdist(qe, xe), 50))
+    del xs
     out["flat_l2.dense"] = dict(
-        max_abs_err=err_fd, **precision, bound_ms=fb, bound_by=fby, f32_bound_ms=f32b,
+        max_abs_err=max(err_fd, err_e), **precision, bound_ms=fb, bound_by=fby,
+        f32_bound_ms=f32b, forms=[exact_scan],
         # the Euclidean distance itself (its square root), one call
         library="torch.cdist", shape=f"B={B} N={N} D={D}",
         **timed(torch, lambda: K.flat_l2(q, x), lambda: flat_l2_ref(q, x),
@@ -1483,28 +1582,22 @@ def sync(torch, dev) -> None:
         torch.cuda.synchronize()
 
 
-def collection_build(torch, dev, cfg, vecs, n_max: int, max_per: int, parts: int) -> tuple:
-    """A Collection on the card built through ``insert`` in calls of parts x
-    batch_size documents (document i: key pk{i % COLL_KEYS}, properties cat
-    = i % 10 and tier = i % 3): N_COLL_MIN first, then the rest unless the
-    whole is projected past COLL_BUDGET_S (halving, to N_COLL_MIN at the
-    least). Returns (collection, n, seconds, cut, seconds of each call)."""
-    from repro_torch.partition import Collection, CollectionConfig
-    from repro_torch.serve.predicate import property_items
+def coll_doc(i: int) -> dict:
+    """Document i of the collections: its properties cat and tier."""
+    return {"id": i, "cat": i % 10, "tier": i % 3}
 
-    col = Collection(CollectionConfig(dim=vecs.shape[1], graph=cfg,
-                                      max_vectors_per_partition=max_per,
-                                      initial_partitions=parts), device=dev)
-    step = parts * cfg.batch_size
+
+def grown(torch, dev, insert, step: int, n_max: int) -> tuple:
+    """``insert(lo, hi)`` in calls of ``step`` documents: N_COLL_MIN first,
+    then the rest unless the whole is projected past COLL_BUDGET_S (halving,
+    to N_COLL_MIN at the least). Returns (n, seconds, cut, seconds of each
+    call)."""
     call_s = []
 
     def build(lo: int, hi: int) -> None:
         for s in range(lo, hi, step):
-            e = min(s + step, hi)
             t = time.perf_counter()
-            col.insert(list(range(s, e)), [f"pk{i % COLL_KEYS}" for i in range(s, e)],
-                       vecs[s:e], props=[property_items({"cat": i % 10, "tier": i % 3})
-                                         for i in range(s, e)])
+            insert(s, min(s + step, hi))
             sync(torch, dev)
             call_s.append(time.perf_counter() - t)
 
@@ -1519,7 +1612,41 @@ def collection_build(torch, dev, cfg, vecs, n_max: int, max_per: int, parts: int
         cut = (f"N_coll cut to {n}: {n_max} was projected at "
                f"{first_s + (n_max - first) / rate:.0f} s > {COLL_BUDGET_S:.0f} s")
     build(first, n)
-    return col, n, time.perf_counter() - t0, cut, call_s
+    return n, time.perf_counter() - t0, cut, call_s
+
+
+def collection_build(torch, dev, cfg, vecs, n_max: int, max_per: int, parts: int) -> tuple:
+    """A Collection on the card built through ``insert`` in calls of parts x
+    batch_size documents (document i: key pk{i % COLL_KEYS}, properties cat
+    and tier), as ``grown`` sizes it. Returns (collection, n, seconds, cut,
+    seconds of each call)."""
+    from repro_torch.partition import Collection, CollectionConfig
+    from repro_torch.serve.predicate import property_items
+
+    col = Collection(CollectionConfig(dim=vecs.shape[1], graph=cfg,
+                                      max_vectors_per_partition=max_per,
+                                      initial_partitions=parts), device=dev)
+    insert = lambda s, e: col.insert(
+        list(range(s, e)), [f"pk{i % COLL_KEYS}" for i in range(s, e)], vecs[s:e],
+        props=[property_items({"cat": i % 10, "tier": i % 3}) for i in range(s, e)])
+    return (col,) + grown(torch, dev, insert, parts * cfg.batch_size, n_max)
+
+
+def service_build(torch, dev, cfg, vecs, n_max: int, max_per: int, parts: int) -> tuple:
+    """A VectorCollectionService on the card built through ``upsert`` (the
+    engine's ingest queue, one chunk of parts x batch_size documents a call,
+    so each reaches the collection's ``insert`` at collection_build's size):
+    document i is coll_doc(i) under key pk{i % COLL_KEYS}. Returns (service,
+    n, seconds, cut, seconds of each call)."""
+    from repro_torch.serve import EngineConfig, VectorCollectionService
+
+    step = parts * cfg.batch_size
+    svc = VectorCollectionService(dim=vecs.shape[1], graph=cfg, max_vectors_per_partition=max_per,
+                                  initial_partitions=parts, replicas=REPLICAS,
+                                  engine_cfg=EngineConfig(ingest_chunk=step), device=dev)
+    insert = lambda s, e: svc.upsert([coll_doc(i) for i in range(s, e)], vecs[s:e],
+                                     partition_keys=[f"pk{i % COLL_KEYS}" for i in range(s, e)])
+    return (svc,) + grown(torch, dev, insert, step, n_max)
 
 
 def same_fanout(np, a, b) -> bool:
@@ -1564,9 +1691,10 @@ def per_shard(torch, args, q, L: int, k: int, W: int):
 
 
 def collection_phase(torch, np, K, dev, idx_main, queries, seed: int,
-                     prof_dir: Path | None = None) -> tuple[dict, dict]:
+                     prof_dir: Path | None = None) -> tuple[dict, dict, object]:
     """Phase 9. A Collection of COLL_PARTS partitions on StoreProviderSets
-    at phase 4's widths, built from phase 4's first N_COLL vectors; 8 batches
+    at phase 4's widths, built from phase 4's first N_COLL vectors through a
+    VectorCollectionService's ``upsert`` (returned for phase 10); 8 batches
     of 128 through the serial fan-out and the stacked one in turns (equal
     bit for bit); distributed_search_fn over the shard-stacked partitions;
     the filtered fan-out (a qflat and a beta predicate); the paged fan-out;
@@ -1591,8 +1719,9 @@ def collection_phase(torch, np, K, dev, idx_main, queries, seed: int,
     cfg = idx_main.cfg._replace(capacity=COLL_CAPACITY)
     L, W, k = cfg.L_search, cfg.beam_width, 10
     K.reset_launch_counts()
-    col, n, build_s, cut, call_s = collection_build(torch, dev, cfg, vecs, N_COLL, COLL_MAX_PER,
-                                                    COLL_PARTS)
+    svc, n, build_s, cut, call_s = service_build(torch, dev, cfg, vecs, N_COLL, COLL_MAX_PER,
+                                                 COLL_PARTS)
+    col = svc.collection
     parts = col.partitions
     check(col.splits == 0 and len(parts) == COLL_PARTS, "a split fired during the build")
     sizes = [p.num_docs for p in parts]
@@ -1810,6 +1939,8 @@ def collection_phase(torch, np, K, dev, idx_main, queries, seed: int,
         launches=counts, profile=prof,
     )
     print("collection: " + json.dumps(out), flush=True)
+    check(svc.collection.partitions == parts and len(svc.docs) == n,
+          "the service's collection is not the one phase 9 ran on")
     check(recall >= RECALL_FLOOR_DEFAULTS, f"fan-out recall@10 {recall} < {RECALL_FLOOR_DEFAULTS}")
     check(dist_same, "distributed_search_fn differs from its per-shard composition")
     check(out["paged"]["overlap_mean"] >= PAGE_OVERLAP_FLOOR,
@@ -1818,7 +1949,380 @@ def collection_phase(torch, np, K, dev, idx_main, queries, seed: int,
     check(split_recall >= SPLIT_RECALL_FLOOR,
           f"recall@10 after the split {split_recall} < {SPLIT_RECALL_FLOOR}")
     check(cpu_same >= 0.99, f"card and CPU fan-out ids agree in only {cpu_same:.4f} of slots")
+    return out, counts, svc
+
+
+def collection_truth(torch, np, dev, parts, qs, k: int) -> np.ndarray:
+    """Exact top-k document ids of qs over every live document of parts."""
+    from repro_torch.core import recall as rec
+
+    docs = np.concatenate([p.index.slot_to_doc[p.providers.live] for p in parts])
+    vec = torch.from_numpy(np.concatenate([p.providers.vectors[p.providers.live]
+                                           for p in parts])).to(dev)
+    live = torch.ones(len(docs), dtype=torch.bool, device=dev)
+    out = np.concatenate([docs[rec.ground_truth(torch.from_numpy(qs[i:i + 128]).to(dev), vec,
+                                                live, k)] for i in range(0, len(qs), 128)])
+    del vec
+    return out
+
+
+def service_state(svc) -> dict:
+    """The plain state of a service's collection (each partition's bounds, its
+    index ``snapshot()``, its store's bytes, doc_pk, doc_props), the form
+    ``VectorCollectionService.from_reference_state`` takes. Checkpointing the
+    store clears its WAL: the snapshot holds everything."""
+    col = svc.collection
+    return dict(next_pid=col._next_pid, splits=col.splits, merges=col.merges, partitions=[
+        dict(lo=p.lo, hi=p.hi, pid=p.pid, index=p.index.snapshot(),
+             snapshot=p.providers.snapshot_bytes(), wal=p.providers.wal_bytes(),
+             doc_pk=dict(p.doc_pk), doc_props=dict(p.doc_props)) for p in col.partitions])
+
+
+def wall_stats(np, ms: list) -> dict:
+    return dict(n=len(ms), p50_ms=float(np.percentile(ms, 50)),
+                p95_ms=float(np.percentile(ms, 95)), mean_ms=float(np.mean(ms)))
+
+
+def serve_phase(torch, np, K, dev, svc, queries, draw, seed: int, plans: dict,
+                prof_dir: Path | None = None) -> tuple[dict, dict]:
+    """Phase 10. Phase 9's service on the card: micro-batched queries in the
+    serial and stacked dispatch modes in turns (equal bit for bit), a pass at
+    max_batch 64, single requests, the exact plan, the filtered plans, paged
+    queries with their tokens through bytes, throttling, a deadline and a
+    degraded fan-out, interleaved ingest, then 16 requests again on the CPU.
+    Every wall time is the host clock with the card synced; the engine's own
+    latencies are SimClock models and are not reported as card times. The
+    launches are counted from 0, and every form of SERVE_FORMS must launch."""
+    from repro_torch.core import search as smod
+    from repro_torch.partition.fanout import batched_fanout_search
+    from repro_torch.serve import (DeadlineExceeded, EngineConfig, F, Throttled,
+                                   VectorCollectionService, VectorQuery, VectorServeEngine,
+                                   decode_continuation, encode_continuation, poisson_arrivals)
+    from repro_torch.serve.vector_engine import serving_jit_cache_size
+
+    parts = svc.collection.partitions
+    k = 10
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+
+    def engine(mode: str, max_batch: int = SERVE_BATCH, on=svc):
+        # admission off: these passes measure what the card serves, not governance
+        return VectorServeEngine(on.collection, cfg=EngineConfig(
+            max_batch=max_batch, dispatch_mode=mode, admission_control=False),
+            resolver=on._partitions_for, replica_sets=on.replica_sets)
+
+    def instrument(eng, log: list) -> None:
+        """Each dispatched micro-batch: (size, bucket, wall ms, signatures it
+        added to serving_jit_cache_size)."""
+        inner = eng._dispatch_chunk
+
+        def timed_chunk(key, batch):
+            sync(torch, dev)
+            sigs = serving_jit_cache_size()
+            t = time.perf_counter()
+            inner(key, batch)
+            sync(torch, dev)
+            log.append((len(batch), smod.next_bucket(len(batch)),
+                        (time.perf_counter() - t) * 1e3, serving_jit_cache_size() - sigs))
+        eng._dispatch_chunk = timed_chunk
+
+    def served(eng, qs, turn: int, **kw) -> tuple[list, float]:
+        """qs submitted at once, stamped with seeded Poisson arrivals far above
+        what the card serves (so micro-batches form from a backlog, alike in
+        every mode), then drained. Returns (responses, wall seconds)."""
+        arr = eng.clock.now() + poisson_arrivals(np.random.RandomState(seed + turn), len(qs),
+                                                 SERVE_RATE_QPS)
+        sync(torch, dev)
+        t = time.perf_counter()
+        rids = [eng.submit_query(qi, k=k, arrival_s=float(a), **kw) for qi, a in zip(qs, arr)]
+        eng.drain()
+        sync(torch, dev)
+        secs = time.perf_counter() - t
+        return [eng.pop_response(r) for r in rids], secs
+
+    def same(a, b) -> bool:
+        return (np.array_equal(a.ids, b.ids) and np.array_equal(a.dists.view(np.int32),
+                                                                 b.dists.view(np.int32))
+                and (a.status, a.ru, a.latency_ms, a.batch_size, a.complete)
+                == (b.status, b.ru, b.latency_ms, b.batch_size, b.complete)
+                and a.plan == b.plan.removesuffix("-spmd"))
+
+    # -- micro-batched queries: serial and stacked in turns ----------------
+    modes = ("serial", "spmd")
+    engines = {m: engine(m) for m in modes}
+    logs = {m: [] for m in modes}
+    for m in modes:
+        instrument(engines[m], logs[m])
+    resp = {m: [] for m in modes}
+    secs = {m: 0.0 for m in modes}
+    launches = {m: {f: 0 for f in K.launch_counts()} for m in modes}
+    n_micro, cut, turn = SERVE_QUERIES, None, 0
+    while turn * SERVE_TURN < n_micro:
+        qs = queries[turn * SERVE_TURN:(turn + 1) * SERVE_TURN]
+        for m in modes:
+            c0 = K.launch_counts()
+            r, s_ = served(engines[m], qs, turn)
+            resp[m] += r
+            secs[m] += s_
+            for f, v in K.launch_counts().items():
+                launches[m][f] += v - c0[f]
+        turn += 1
+        if turn == 1:
+            turn_s = secs["serial"] + secs["spmd"]
+            while n_micro > SERVE_QUERIES_MIN and turn_s * n_micro / SERVE_TURN > SERVE_BUDGET_S / 2:
+                n_micro //= 2
+            if n_micro < SERVE_QUERIES:
+                cut = (f"micro-batched queries cut to {n_micro}: {SERVE_QUERIES} were projected at "
+                       f"{turn_s * SERVE_QUERIES / SERVE_TURN:.0f} s > {SERVE_BUDGET_S / 2:.0f} s")
+    qm = queries[:n_micro]
+    check(all(r.status == 200 for m in modes for r in resp[m]), "a micro-batched query failed")
+    check(all(same(a, b) for a, b in zip(resp["serial"], resp["spmd"])),
+          "the stacked mode's responses differ from the serial mode's")
+    check({r.plan for r in resp["spmd"]} == {"graph-spmd"}, "a stacked batch left the program")
+    # one bucket of the engine against the fan-out it calls
+    L = max(k, int(round(EngineConfig().search_list_multiplier * k)))
+    direct, _, _ = batched_fanout_search(parts, qm[:SERVE_BATCH], k, L=L,
+                                         batch_buckets=smod.BATCH_BUCKETS,
+                                         beam_width=EngineConfig().beam_width)
+    check(np.array_equal(np.stack([r.ids for r in resp["serial"][:SERVE_BATCH]]), direct),
+          "the engine's ids differ from a direct batched_fanout_search of the bucket")
+    # signatures: none new after the first micro-batch of each (mode, bucket)
+    late = [(m, bucket) for m in modes for i, (_, bucket, _, added) in enumerate(logs[m])
+            if added and bucket in {b for _, b, _, _ in logs[m][:i]}]
+    check(not late, f"micro-batches minted a signature after their bucket's first: {late}")
+    micro = {}
+    for m in modes:
+        ms = [w for _, _, w, _ in logs[m]]
+        by_bucket = {}
+        for size, bucket, w, _ in logs[m]:
+            by_bucket.setdefault(bucket, []).append(w)
+        micro[m] = dict(queries=n_micro, qps=n_micro / secs[m], seconds=secs[m],
+                        batches=len(ms), **wall_stats(np, ms),
+                        first_ms=ms[0], by_bucket={b: wall_stats(np, w)
+                                                   for b, w in sorted(by_bucket.items())},
+                        launches_per_query={f: v / n_micro for f, v in launches[m].items() if v})
+
+    # -- one pass at max_batch 64 in each mode ------------------------------
+    wide = {}
+    wide_resp = {}
+    for m in modes:
+        log = []
+        eng = engine(m, SERVE_WIDE_BATCH)
+        instrument(eng, log)
+        served(eng, qm[:SERVE_WIDE_BATCH], 90)  # the bucket's signature first
+        log.clear()
+        r, s_ = served(eng, qm[:SERVE_WIDE], 91)
+        wide_resp[m] = r
+        wide[m] = dict(queries=len(r), qps=len(r) / s_, batches=len(log),
+                       **wall_stats(np, [w for _, _, w, _ in log]))
+    check(all(same(a, b) for a, b in zip(wide_resp["serial"], wide_resp["spmd"])),
+          "at max_batch 64 the stacked mode's responses differ from the serial mode's")
+
+    # -- single requests (bucket 1), through the service's own engine -------
+    gov = svc.engine
+    gov.set_tenant_budget("load", 1e12)  # a tenant whose budget these requests never reach
+    single_ms = []
+    for qi in qm[:SERVE_SINGLE]:
+        sync(torch, dev)
+        t = time.perf_counter()
+        res = svc.query(VectorQuery(vector=qi, k=k, tenant="load"))
+        sync(torch, dev)
+        single_ms.append((time.perf_counter() - t) * 1e3)
+        check(res.plan == "graph" and res.complete and res.ids.shape == (k,), "svc.query")
+
+    # -- the exact plan: one micro-batch of 16 on the partitions' mirrors ---
+    mirrors = lambda: [p.providers.materialize(p.index.ctx)[4].data_ptr() for p in parts]
+    ptrs = mirrors()
+    c0 = K.launch_counts()
+    ex_eng = engine("serial")
+    served(ex_eng, qm[:SERVE_EXACT], 92, exact=True)  # warm
+    exact_r, exact_s = served(ex_eng, qm[:SERVE_EXACT], 93, exact=True)
+    exact_launch = {f: v - c0[f] for f, v in K.launch_counts().items()}
+    check(mirrors() == ptrs, "the exact plan replaced a partition's device mirror")
+    check({r.plan for r in exact_r} == {"exact"} and exact_r[0].batch_size == SERVE_EXACT,
+          "the exact queries did not run as one exact micro-batch")
+    check(exact_launch["flat_l2.dense"] > 0 and exact_launch["topk_select.long"] > 0,
+          f"the exact plan did not launch flat_l2.dense and topk_select.long: {exact_launch}")
+
+    # -- filtered: Q-Flat and beta predicates, one request each call --------
+    filt = {}
+    for name, pred in (("eq_cat_3", F.eq("cat", 3)), ("in_cat_6", F.in_("cat", [0, 1, 2, 4, 5, 6]))):
+        times = []
+        for _ in range(1 + COLL_FILTER_REPEATS):
+            sync(torch, dev)
+            t = time.perf_counter()
+            res = svc.query(VectorQuery(vector=qm[0], k=k, filter=pred, tenant="load"))
+            sync(torch, dev)
+            times.append((time.perf_counter() - t) * 1e3)
+        check(res.plan == plans[name], f"filtered {name}: plan {res.plan}, phase 9 ran "
+                                       f"{plans[name]}")
+        cats = [coll_doc(int(d))["cat"] for d in res.ids if d >= 0]
+        check(bool(cats) and all(pred.matches({"cat": c}) for c in cats),
+              f"filtered {name} returned a non-matching document")
+        filt[name] = dict(plan=res.plan, first_ms=times[0], ms=float(np.median(times[1:])))
+
+    # -- paged: tokens through bytes, decoded onto the card -----------------
+    page_ms, streams, tokens = [], [], []
+    for qi in qm[:COLL_PAGE_QUERIES]:
+        tok, seen = None, []
+        for _ in range(PAGES):
+            sync(torch, dev)
+            t = time.perf_counter()
+            res = svc.query_page(VectorQuery(vector=qi, tenant="load"), continuation=tok,
+                                 page_size=PAGE_K)
+            sync(torch, dev)
+            page_ms.append((time.perf_counter() - t) * 1e3)
+            check(res.continuation is not None, "pagination ended before 5 pages")
+            tok = bytes(res.continuation)
+            tokens.append(tok)
+            got = res.ids[res.ids >= 0].tolist()
+            check(not set(got) & set(seen), "a page repeated a result")
+            seen += got
+        streams.append(seen)
+    st = decode_continuation(tokens[-1], device=dev)
+    again = encode_continuation(st)
+    st2 = decode_continuation(again, device=dev)
+    check(again == tokens[-1], "a decoded token does not encode to its own bytes")
+    for c1, c2 in zip(st.cursors, st2.cursors):
+        check((c1.pid, c1.exhausted, c1.fetch_hwm) == (c2.pid, c2.exhausted, c2.fetch_hwm)
+              and np.array_equal(c1.buf_ids, c2.buf_ids)
+              and np.array_equal(c1.buf_dists, c2.buf_dists), "a cursor differs after decoding")
+        if c1.state is not None:
+            for f1, f2 in zip(c1.state, c2.state):
+                check(f1.device.type == dev.type and torch.equal(f1, f2),
+                      "a decoded search state differs, or is not on the card")
+
+    # -- governance and faults ----------------------------------------------
+    gov.set_tenant_budget("poor", 0.5 * gov.cfg.admission_estimate_ru)
+    throttled = deadline = False
+    try:
+        svc.query(VectorQuery(vector=qm[0], k=k, tenant="poor"))
+    except Throttled:
+        throttled = True
+    try:
+        svc.query(VectorQuery(vector=qm[0], k=k, deadline_ms=0.0))
+    except DeadlineExceeded:
+        deadline = True
+    victim = svc.replica_sets[1]
+    for rep in victim.replicas:
+        rep.alive = False
+    try:
+        degraded = svc.query(VectorQuery(vector=qm[0], k=k))
+    finally:
+        for rep in victim.replicas:
+            rep.alive = True
+    pid = parts[1].pid
+    check(throttled, "a tenant below one query's estimate was not throttled")
+    check(deadline, "deadline_ms=0.0 did not raise DeadlineExceeded")
+    check(not degraded.complete and degraded.plan == f"graph+degraded[{pid}]",
+          f"a partition with every replica down gave {degraded.plan}, complete "
+          f"{degraded.complete}")
+    gsnap = gov.snapshot()
+    governance = dict(throttled=gsnap["queries_throttled"], deadline=gsnap["queries_deadline"],
+                      degraded=gsnap["queries_degraded"])
+
+    # -- exact ground truth of what was served so far, on the card ---------
+    truth = collection_truth(torch, np, dev, parts, qm, k)
+    recall = rec_at(np, resp["serial"], truth, k)
+    exact_same = all(set(r.ids.tolist()) == set(t.tolist())
+                     for r, t in zip(exact_r, truth[:SERVE_EXACT]))
+    gt50 = collection_truth(torch, np, dev, parts, qm[:COLL_PAGE_QUERIES], PAGES * PAGE_K)
+    overlap = [len(set(s) & set(g.tolist())) / (PAGES * PAGE_K) for s, g in zip(streams, gt50)]
+
+    # -- interleaved ingest: upsert_async while queries flow ----------------
+    qi_ = qm[:min(SERVE_INGEST_QUERIES, n_micro)]
+    recall_before = rec_at(np, resp["serial"][:len(qi_)], truth[:len(qi_)], k)
+    new_ids = list(range(SERVE_NEW_BASE, SERVE_NEW_BASE + SERVE_INGEST))
+    new_vecs = draw(SERVE_INGEST).cpu().numpy()
+    ingest_s = []
+    apply = svc._apply_upsert
+
+    def timed_apply(*a):
+        sync(torch, dev)
+        t = time.perf_counter()
+        ru = apply(*a)
+        sync(torch, dev)
+        ingest_s.append(time.perf_counter() - t)
+        return ru
+
+    svc._apply_upsert = timed_apply
+    c0 = K.launch_counts()
+    tally = svc.upsert_async([coll_doc(i) for i in new_ids], new_vecs,
+                             partition_keys=[f"pk{i % COLL_KEYS}" for i in new_ids])
+    during, during_s = served(gov, qi_, 94, tenant="load")
+    del svc._apply_upsert
+    check(gov.ingest_backlog == 0 and gov.metrics.ingest_ops >= SERVE_INGEST and tally.value > 0,
+          "the ingest queue did not drain")
+    check(all(r.status == 200 for r in during), "a query failed while ingest interleaved")
+    check(K.launch_counts()["pq_encode"] > c0["pq_encode"], "ingest did not launch pq_encode")
+    after, _ = served(engine("serial"), qi_, 95)
+    recall_after = rec_at(np, after, collection_truth(torch, np, dev, parts, qi_, k), k)
+    ingest = dict(docs=SERVE_INGEST, queries=len(qi_), inserts_per_s=SERVE_INGEST / sum(ingest_s),
+                  chunks=len(ingest_s), wall_s=during_s, recall_before=recall_before,
+                  recall_after=recall_after)
+    counts = K.launch_counts()  # phase 10's path on the card ends here
+
+    if prof_dir is not None:
+        pe = {m: engine(m) for m in modes}
+        prof = profile_runs(torch, {f"serve_{m}_16": [lambda m=m: served(pe[m], qm[:SERVE_BATCH],
+                                                                         96)] * 2
+                                    for m in modes}, prof_dir)
+    else:
+        prof = None
+
+    # -- 16 requests again on the CPU, the collection carried across --------
+    t = time.perf_counter()
+    cpu_svc = VectorCollectionService.from_reference_state(
+        service_state(svc), svc.docs, svc.cfg, device="cpu",
+        engine_cfg=EngineConfig(admission_control=False))
+    carry_s = time.perf_counter() - t
+    qc = qm[:SERVE_CPU_REQUESTS]
+    card_r, _ = served(engine("serial"), qc, 97)
+    cpu_r, _ = served(engine("serial", on=cpu_svc), qc, 97)
+    cpu_same = float((np.stack([r.ids for r in card_r]) == np.stack([r.ids for r in cpu_r])).mean())
+    cpu_status = [r.status for r in card_r] == [r.status for r in cpu_r]
+    cpu_ru = bool(np.allclose([r.ru for r in cpu_r], [r.ru for r in card_r], rtol=0.01, atol=0))
+    del cpu_svc
+
+    out = dict(
+        queries=n_micro, cut=cut,
+        rate_qps_offered=SERVE_RATE_QPS, micro=micro, max_batch_64=wide,
+        stacked_equal_to_serial=True, recall_at_10=recall,
+        single=dict(queries=SERVE_SINGLE, **wall_stats(np, single_ms)),
+        exact=dict(queries=SERVE_EXACT, wall_ms=exact_s * 1e3, equal_to_truth=exact_same,
+                   mirror_unchanged=True,
+                   launches={f: v for f, v in exact_launch.items() if v}),
+        filtered=filt,
+        paged=dict(queries=COLL_PAGE_QUERIES, pages=PAGES, k=PAGE_K, **wall_stats(np, page_ms),
+                   token_bytes=len(tokens[-1]), overlap_mean=float(np.mean(overlap)),
+                   overlap_min=float(np.min(overlap))),
+        governance=governance, ingest=ingest,
+        cpu=dict(requests=SERVE_CPU_REQUESTS, ids_equal=cpu_same, statuses_equal=cpu_status,
+                 ru_within_1pct=cpu_ru, carry_s=carry_s),
+        signatures=serving_jit_cache_size(), seconds=time.perf_counter() - t_phase,
+        launches=counts, profile=prof,
+    )
+    print("serve: " + json.dumps(out), flush=True)
+    missing = [f for f in SERVE_FORMS if counts[f] <= 0]
+    check(not missing, f"phase 10: {missing} did not launch")
+    check(recall >= RECALL_FLOOR_DEFAULTS,
+          f"served recall@10 {recall} < {RECALL_FLOOR_DEFAULTS}")
+    check(exact_same, "the exact plan's ids differ from exact ground truth")
+    check(out["paged"]["overlap_mean"] >= PAGE_OVERLAP_FLOOR,
+          f"served pages overlap the exact top {PAGES * PAGE_K} by "
+          f"{out['paged']['overlap_mean']:.3f} < {PAGE_OVERLAP_FLOOR}")
+    check(abs(recall_after - recall_before) <= 0.01,
+          f"recall@10 moved {recall_before:.4f} -> {recall_after:.4f} over the ingest")
+    check(cpu_same >= 0.99 and cpu_status and cpu_ru,
+          f"card and CPU requests: ids equal in {cpu_same:.4f}, statuses equal {cpu_status}, "
+          f"RU within 1 % {cpu_ru}")
     return out, counts
+
+
+def rec_at(np, responses, truth, k: int) -> float:
+    from repro_torch.core import recall as rec
+
+    return rec.recall_at_k(np.stack([r.ids for r in responses]), truth, k)
 
 
 def run(args) -> int:
@@ -1923,7 +2427,7 @@ def run(args) -> int:
               f"{entry['launches_per_page']:.2f} per page, "
               f"{entry['launches_per_durable_insert']:.2f} per durable insert", flush=True)
     # 9. a collection: its fan-outs, replicas and a split
-    collection, coll_counts = collection_phase(
+    collection, coll_counts, svc = collection_phase(
         torch, np, K, dev, idx, queries, args.seed,
         Path(args.out).parent if args.profile else None)
     for entry in line["kernels"]:
@@ -1936,13 +2440,32 @@ def run(args) -> int:
         print(f"launches {name}: {coll_counts[name]} in phase 9, per fan-out batch "
               f"{entry['launches_per_fanout_batch_serial']:.1f} serial, "
               f"{entry['launches_per_fanout_batch_stacked']:.1f} stacked", flush=True)
+    # 10. the service over phase 9's collection
+    del idx
+    torch.cuda.empty_cache()
+    serve, serve_counts = serve_phase(
+        torch, np, K, dev, svc, queries, draw, args.seed,
+        {name: f["plan"] for name, f in collection["filtered"].items()},
+        Path(args.out).parent if args.profile else None)
+    del svc
+    for entry in line["kernels"]:
+        name = entry["name"]
+        entry["launches_serve"] = serve_counts[name]
+        entry["launches"] += serve_counts[name]
+        for way in ("serial", "spmd"):
+            entry[f"launches_per_served_query_{way}"] = (
+                serve["micro"][way]["launches_per_query"].get(name, 0.0))
+        print(f"launches {name}: {serve_counts[name]} in phase 10, per served query "
+              f"{entry['launches_per_served_query_serial']:.2f} serial, "
+              f"{entry['launches_per_served_query_spmd']:.2f} stacked", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(kernels=line["kernels"], main_path=path,
                                                   card_vs_cpu=versus, wide_cuts=wide,
                                                   wide_turns=wide_turns, profile=prof,
                                                   updates=updates, collection=collection,
-                                                  card=card, launch_floor_ms=floor_ms),
+                                                  serve=serve, card=card,
+                                                  launch_floor_ms=floor_ms),
                                              indent=1))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

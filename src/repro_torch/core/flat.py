@@ -18,7 +18,7 @@ import torch
 from ..kernels.flat_l2.ops import flat_l2, flat_l2_gathered
 from ..kernels.pq_adc.ops import pq_adc
 from ..kernels.topk_select.ops import topk_select
-from .search import mask_duplicates
+from .search import mask_duplicates, note_signature
 
 INF = float("inf")
 
@@ -27,6 +27,9 @@ QUANTIZED_LIST_MULTIPLIER = 5.0  # k' = multiplier * k candidates to re-rank
 BRUTE_FORCE_MAX_DOCS = 1000
 QFLAT_MAX_MATCHES = 5000
 
+# the launch signatures brute_force and rerank have run (jit_cache_size)
+_SIGNATURES: set = set()
+
 
 def brute_force(queries: torch.Tensor, vectors: torch.Tensor, live: torch.Tensor, *,
                 k: int, metric: str = "l2") -> tuple[torch.Tensor, torch.Tensor]:
@@ -34,6 +37,8 @@ def brute_force(queries: torch.Tensor, vectors: torch.Tensor, live: torch.Tensor
 
     When fewer than k entries pass ``live`` (a selective predicate mask), the
     remainder comes back as -1/inf -- never as a masked-out document."""
+    note_signature(_SIGNATURES, ("brute_force", tuple(queries.shape), tuple(vectors.shape), k,
+                                 metric))
     d = flat_l2(queries.float().contiguous(), vectors, metric)
     d = torch.where(live[None, :], d, torch.full_like(d, INF))
     vals, idx = topk_select(d, k, mark_nonfinite=True)
@@ -60,6 +65,8 @@ def rerank(queries: torch.Tensor, cand_ids: torch.Tensor, vectors: torch.Tensor,
            k: int, metric: str = "l2") -> tuple[torch.Tensor, torch.Tensor]:
     """Fig 5: exact re-ranking of quantized-space candidates (B, C), -1 padded.
     Duplicate and -1 candidates are excluded. Returns (ids (B, k), dists)."""
+    note_signature(_SIGNATURES, ("rerank", tuple(queries.shape), tuple(cand_ids.shape),
+                                 tuple(vectors.shape), k, metric))
     ids = cand_ids.to(torch.int32).contiguous()
     d = flat_l2_gathered(queries.float().contiguous(), vectors, ids, metric)
     keep = (ids >= 0) & ~mask_duplicates(ids)
@@ -67,3 +74,11 @@ def rerank(queries: torch.Tensor, cand_ids: torch.Tensor, vectors: torch.Tensor,
     vals, pos = topk_select(d, k)
     out = ids.gather(1, pos.long())
     return torch.where(torch.isfinite(vals), out, torch.full_like(out, -1)), vals
+
+
+def jit_cache_size() -> int:
+    """The number of distinct launch signatures -- each call's shapes, k and
+    metric -- that ``brute_force`` and ``rerank`` have run: the port's
+    counterpart of the reference's compiled-signature counts of the two
+    (``serve.vector_engine.serving_jit_cache_size`` sums them)."""
+    return len(_SIGNATURES)

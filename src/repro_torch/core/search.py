@@ -18,6 +18,7 @@ Counters: ``n_hops`` sequential rounds, ``n_exp`` frontier nodes expanded,
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -28,6 +29,29 @@ from ..kernels.topk_select.ops import topk_select
 from . import graph as g
 
 INF = float("inf")
+
+# the launch signatures batch_greedy_search has run (jit_cache_size)
+_SIGNATURES: set = set()
+_UNCOUNTED = [0]
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Calls inside add no signature to ``jit_cache_size`` (nor to
+    ``flat``'s counters): the stacked fan-out counts its search and rerank
+    as one program of its own, as the reference's inner calls under a
+    ``shard_map`` jit fill no cache of their own."""
+    _UNCOUNTED[0] += 1
+    try:
+        yield
+    finally:
+        _UNCOUNTED[0] -= 1
+
+
+def note_signature(signatures: set, sig: tuple) -> None:
+    """Add ``sig`` to ``signatures`` unless inside ``uncounted()``."""
+    if not _UNCOUNTED[0]:
+        signatures.add(sig)
 
 
 class SearchResult(NamedTuple):
@@ -130,6 +154,8 @@ def batch_greedy_search(
         start_ids = start.to(device=dev, dtype=torch.int32).reshape(B, 1)
     else:
         start_ids = torch.full((B, 1), int(start), dtype=torch.int32, device=dev)
+    note_signature(_SIGNATURES, (B, luts.shape[1], cap, L, W, max_hops, visited_cap,
+                                 filter_bits is not None))
     start_d = pq_adc(luts, codes, versions, start_ids)[:, 0]
     ids = torch.full((B, L), -1, dtype=torch.int32, device=dev)
     ids[:, 0] = start_ids[:, 0]
@@ -191,6 +217,17 @@ def batch_greedy_search(
         visited_dists=visited_dists[:, :visited_cap].contiguous(),
         n_hops=hops, n_exp=exp, n_cmps=cmps,
     )
+
+
+def jit_cache_size() -> int:
+    """The number of distinct launch signatures -- (batch, schemas V, graph
+    rows, L, W, max_hops, visited_cap, has_filter) -- that
+    ``batch_greedy_search`` has run: the port's counterpart of the
+    reference's count of compiled signatures of its batched search entry.
+    The port compiles nothing per shape; a signature seen for the first time
+    is where the reference compiled, so a flat count means the traffic mints
+    no new shape."""
+    return len(_SIGNATURES)
 
 
 # ---------------------------------------------------------------------------

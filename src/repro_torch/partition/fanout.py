@@ -565,12 +565,13 @@ def distributed_search_fn(*, L: int, k: int, metric: str = "l2", max_hops: int =
                           for s in range(S)])[:, None].contiguous()  # (S·B, 1, M, K)
         start = (medoid.to(torch.int32)
                  + torch.tensor(offsets, dtype=torch.int32, device=dev)).repeat_interleave(B)
-        res = smod.batch_greedy_search(
-            nb, codes.reshape(S * n, -1).contiguous(), versions.reshape(-1).contiguous(),
-            live.reshape(-1).bool(), luts, start, L=L, max_hops=max_hops,
-            beam_width=beam_width)
-        lids, ldists = fmod.rerank(q.repeat(S, 1), res.beam_ids[:, :2 * k],
-                                   vectors.reshape(S * n, -1).float(), k=k, metric=metric)
+        with smod.uncounted():  # one program, as the reference's shard_map
+            res = smod.batch_greedy_search(
+                nb, codes.reshape(S * n, -1).contiguous(), versions.reshape(-1).contiguous(),
+                live.reshape(-1).bool(), luts, start, L=L, max_hops=max_hops,
+                beam_width=beam_width)
+            lids, ldists = fmod.rerank(q.repeat(S, 1), res.beam_ids[:, :2 * k],
+                                       vectors.reshape(S * n, -1).float(), k=k, metric=metric)
         docs = doc_ids.reshape(-1)
         gdoc = torch.where(lids >= 0, docs[lids.long().clamp(min=0)], -1)
         gd = torch.where(lids >= 0, ldists, INF)
@@ -581,6 +582,20 @@ def distributed_search_fn(*, L: int, k: int, metric: str = "l2", max_hops: int =
         return flat_i.gather(1, pos.long()), vals
 
     return fn
+
+
+# the launch signatures the stacked fan-out has run (spmd_jit_cache_size)
+_SPMD_SIGNATURES: set = set()
+
+
+def spmd_jit_cache_size() -> int:
+    """The number of distinct launch signatures -- (partitions P, bucket,
+    schemas V, stacked rows, L, k, k', W, metric) -- that ``SpmdFanout`` has
+    run: the port's counterpart of the reference's count of compiled
+    ``shard_map`` programs and shapes. It feeds
+    ``serve.vector_engine.serving_jit_cache_size``; the stacked call's own
+    search and rerank count here, not in ``core.search.jit_cache_size``."""
+    return len(_SPMD_SIGNATURES)
 
 
 class SpmdFanout:
@@ -757,12 +772,15 @@ class SpmdFanout:
                 [lt, lt[:, -1:].expand(-1, V_max - lt.shape[1], -1, -1)], 1)
             for lt in luts]).contiguous()
         arrs = self._stacked(prog_parts)
-        res = smod.batch_greedy_search(
-            arrs["neighbors"], arrs["codes"], arrs["versions"], arrs["live"], luts,
-            arrs["medoid"].repeat_interleave(bucket), L=L_eff, beam_width=int(W_eff))
-        cand = res.beam_ids[:, :kprime]
-        q = torch.from_numpy(padded).to(self.device).repeat(len(prog_parts), 1)
-        ids, dists = fmod.rerank(q, cand, arrs["vectors"], k=k, metric=idx0.cfg.metric)
+        _SPMD_SIGNATURES.add((len(prog_parts), bucket, V_max, arrs["neighbors"].shape[0], L_eff,
+                              k, kprime, int(W_eff), idx0.cfg.metric))
+        with smod.uncounted():
+            res = smod.batch_greedy_search(
+                arrs["neighbors"], arrs["codes"], arrs["versions"], arrs["live"], luts,
+                arrs["medoid"].repeat_interleave(bucket), L=L_eff, beam_width=int(W_eff))
+            cand = res.beam_ids[:, :kprime]
+            q = torch.from_numpy(padded).to(self.device).repeat(len(prog_parts), 1)
+            ids, dists = fmod.rerank(q, cand, arrs["vectors"], k=k, metric=idx0.cfg.metric)
         ids, dists, cand = ids.cpu().numpy(), dists.cpu().numpy(), cand.cpu().numpy()
         doc = np.where(ids >= 0, arrs["slot_to_doc"][np.maximum(ids, 0)], -1)
         out = []
