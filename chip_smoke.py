@@ -114,6 +114,38 @@ Phases, each printed on its own lines; any failure exits non-zero:
     and reranks; the exact scan B=16 N=21 024 and its cut). With
     ``--profile``, one micro-batch of 16 is profiled in each mode. No time
     the engine models on its SimClock is printed as a card time.
+11. the serving launcher and the dense LM stack, after phase 10: (a)
+    ``repro_torch.launch.serve.main`` on the card once in each dispatch mode
+    (serial with the adaptive policy, a quarter of the vector pages
+    resident, its trace and metrics files written and non-empty; replica
+    with 4 lanes; spmd), its own lines printed; launches counted from 0 and
+    every form of LAUNCH_FORMS must launch; each mode's search answers
+    against exact float64 ones (ascending, the distances of their ids within
+    the f32 limit, recall@3 >= LAUNCH_RECALL_FLOOR); the serial run again on
+    the CPU, ids equal in LAUNCH_CPU_EQUAL of the slots; phase 3 holds each
+    form at the launcher's shapes (LAUNCH_ADC, LAUNCH_TOPK, LAUNCH_RERANK,
+    LAUNCH_ENCODE); (b) smollm-135m at full width
+    (30 layers, d_model 576, vocab 49 152, bf16) from a generator seeded by
+    ``--seed``: ServeEngine (4 slots, S_max 256) serves 8 seeded prompts of
+    32-64 tokens x 32 new tokens; prefill ms per request and decode ms per
+    step (p50 / p95, host clock, card synced), tokens/s, the peak allocated
+    memory, the decode step beside its bytes bound (decode_bytes: the
+    weights it reads, the KV cache at the step's cache_len and the logits,
+    over 3.35 TB/s); (c) those weights on the card against a CPU copy, 2
+    prompts through ``prefill`` and 4 ``decode_step``s teacher-forced with
+    the card's tokens, in bf16 and again in f32 (logits within
+    CARD_CPU_REL of their max-abs; greedy tokens equal wherever the CPU's
+    top-2 margin exceeds twice the largest difference); (d) qwen3-14b at full
+    width (40 layers, d_model 5120, GQA 40/8, qk_norm, vocab 151 936, bf16,
+    29.5 GB) initialised on the card: ``prefill`` over 64 tokens against
+    ``prefill`` over 63 + one ``decode_step`` on 2 prompts (the same
+    weights converted to f32 within rtol = atol = 1e-3; bf16 within the
+    smaller of its two paths' distances from f32), then ServeEngine serves 4
+    prompts of 64 tokens x 16 new
+    tokens, the decode step beside its bytes bound; the model is freed and
+    the peak allocated memory printed. The LM path launches none of the
+    port's kernels (asserted), and phase 11 must take at most LM_BUDGET_S.
+    With ``--profile``, one decode step of each model is profiled.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -121,6 +153,8 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
 import math
 import subprocess
@@ -214,6 +248,54 @@ SERVE_CPU_REQUESTS = 16
 # the forms phase 10 must launch
 SERVE_FORMS = ("pq_adc.gathered", "pq_adc.gathered_l2", "pq_adc.dense", "topk_select.rank",
                "topk_select.long", "flat_l2.gathered", "flat_l2.dense", "pq_encode")
+# phase 11: the serving launcher (its vector half) and the dense LM stack
+# the forms the launcher's upsert and svc.query reach at its widths (D=32,
+# M=8, R=16, L=48): one query per call, 4 x 21 rows a round, under the
+# staged form's 100
+LAUNCH_FORMS = ("pq_encode", "pq_adc.gathered_l2", "topk_select.rank", "flat_l2.gathered")
+# the shapes the launcher gives those forms, as a CPU run recording each
+# wrapper's arguments shows them (D=32, M=8, K=256, one schema, 756 rows =
+# corpus 500 + 256); phase 3 holds each and times it. pq_adc: a build round
+# of a 64-row insert mini-batch (W=1, C = R_slack = 20), a query's round (W=4:
+# C=80; the adaptive policy's W=1: C=20) and its start node, as (what, B, C)
+LAUNCH_D, LAUNCH_M, LAUNCH_ROWS = 32, 8, 756
+LAUNCH_ADC = (("launcher build round", 64, 20), ("launcher query round", 1, 80),
+              ("launcher query round W=1", 1, 20), ("launcher start node", 1, 1))
+# topk_select (name, B, N, L): the build's merge (L_build 32 over 32 + 20),
+# frontier and prune (R=16 of 112 candidates); a query's merge (L = 5k = 15
+# at k=3, over 15 + 80), frontier (W=4) and rerank cut (k of 15)
+LAUNCH_TOPK = (("launcher_build_merge", 64, 52, 32), ("launcher_build_frontier", 64, 32, 1),
+               ("launcher_prune", 64, 112, 16), ("launcher_merge", 1, 95, 15),
+               ("launcher_frontier", 1, 15, 4), ("launcher_rerank_cut", 1, 15, 3))
+LAUNCH_RERANK = (1, 15)  # flat_l2.gathered: one query, k' = 15 rows
+LAUNCH_ENCODE = (("launcher bootstrap", 128), ("launcher insert", 64))  # pq_encode rows
+# 11a: the launcher's answers (k=3 of row i + 0.01) against exact float64
+# ones: recall@3 at least this (on the CPU the port's launcher finds 0.79 of
+# the exact top 3, the reference's 0.83-0.88, at these small settings);
+# ids equal to a CPU replay of the serial run in this share of the slots (the
+# graph is rebuilt there: phase 3 lets 0.1 % of pq_encode's codes differ at
+# near-ties, and one differing code can move a neighbour list)
+LAUNCH_RECALL_FLOOR, LAUNCH_CPU_EQUAL = 0.7, 0.9
+LM_BUDGET_S = 120.0  # phase 11 must fit in this
+LM_SLOTS, LM_S_MAX = 4, 256  # ServeEngine's batch slots and cache length
+SMOL_REQUESTS, SMOL_PROMPT, SMOL_NEW = 8, (32, 64), 32  # prompts of 32-64 tokens
+CPU_PROMPT, CPU_DECODES = 48, 4  # 11c: two prompts of 48 tokens, 4 teacher-forced steps
+# 11c: max |card - CPU| over the CPU logits' max-abs. bf16: both round every
+# product to bf16, in other orders (on cut-depth smollm on the CPU, bf16 and
+# f32 logits differ by 1.2 % of the max-abs); f32: TF32 off
+CARD_CPU_REL = {"bfloat16": 0.05, "float32": 1e-4}
+QWEN_PROMPTS, QWEN_PROMPT, QWEN_NEW = 4, 64, 16  # 11d's requests
+# 11d: prefill over S against prefill over S-1 + one decode step. f32 (the
+# same weights): rtol = atol = 1e-3, tighter than tests/test_models.py's
+# 3e-2 on its f32 smoke configs. bf16 rounds differently along the two
+# paths (other product shapes) through 40 layers: their largest difference
+# must not exceed the smaller of the two bf16 paths' largest distances from
+# their f32 counterparts on the same weights and tokens, measured in the
+# same run (a fault on one path widens only that path's distance); 3e-2 is
+# reported
+QWEN_CONSISTENCY_TOL = 3e-2
+QWEN_F32_TOL = 1e-3
+
 # the kernel forms each part of phase 8 must launch
 UPDATE_FORMS = {
     "delete": ("flat_l2.gathered", "topk_select.rank"),
@@ -526,18 +608,18 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
                                                 f"{e['l2_max_abs_err']:.2e}" for e in edges),
           flush=True)
 
-    def gathered_bound(codes, versions, ids, nv=V):
+    def gathered_bound(codes, versions, ids, nv=V, nm=M):
         """Bytes of one gathered call: ids, each valid row's code bytes and
         version, each table entry its lookups touch, the output."""
         Bq, Cq = ids.shape
         ok = ids >= 0
         valid = ids[ok].long()
         bq = torch.arange(Bq, device=dev)[:, None].expand(Bq, Cq)[ok]
-        lut_idx = (((bq * nv + versions[valid].long())[:, None] * M + torch.arange(M, device=dev))
-                   * Kc + codes[valid].long())
+        lut_idx = (((bq * nv + versions[valid].long())[:, None] * nm
+                    + torch.arange(nm, device=dev)) * Kc + codes[valid].long())
         n_ok = int(ok.sum())
-        return bound(Bq * Cq * 4 + n_ok * (M + 1) + int(torch.unique(lut_idx).numel()) * 4
-                     + Bq * Cq * 4, n_ok * M)
+        return bound(Bq * Cq * 4 + n_ok * (nm + 1) + int(torch.unique(lut_idx).numel()) * 4
+                     + Bq * Cq * 4, n_ok * nm)
 
     gb, gby = gathered_bound(codes, versions, ids)
     db, dby = bound(N * (M + 1) + B * V * M * Kc * 4 + B * N * 4, B * N * M)
@@ -614,11 +696,31 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
                       bound_ms=lb1, max_abs_err=err_b1,
                       **timed(torch, lambda: K.pq_adc(luts_b, codes, one, ids_b),
                               lambda: pq_adc_ref(luts_b, codes, one, ids_b), None, 200))
+    # the launcher's rounds (phase 11a): one schema, M=8, over its 756 rows
+    launch_rounds = []
+    lc = torch.randint(0, Kc, (LAUNCH_ROWS, LAUNCH_M), generator=g, device=dev,
+                       dtype=torch.uint8)
+    lv = torch.zeros(LAUNCH_ROWS, dtype=torch.uint8, device=dev)
+    for what, nb, nc in LAUNCH_ADC:
+        ll = torch.randn(nb, 1, LAUNCH_M, Kc, generator=g, device=dev)
+        li = torch.randint(0, LAUNCH_ROWS, (nb, nc), generator=g, device=dev, dtype=torch.int32)
+        li[:, 1::7] = -1  # padding lanes; a start node's one id stays a row
+        check(adc_form(nc, 1, LAUNCH_M, Kc, True) == "gathered_l2",
+              f"the {what} does not take the l2 form")
+        err_lr = adc_same(ll, lc, lv, li, f"{what} B={nb} C={nc}")
+        lrb, lrby = gathered_bound(lc, lv, li, 1, LAUNCH_M)
+        launch_rounds.append(dict(
+            form=what, shape=f"B={nb} C={nc} V=1 M={LAUNCH_M} K={Kc} N={LAUNCH_ROWS}",
+            bound_ms=lrb, bound_by=lrby, max_abs_err=err_lr,
+            **timed(torch, lambda: K.pq_adc(ll, lc, lv, li),
+                    lambda: pq_adc_ref(ll, lc, lv, li), None, 200)))
+        del ll, li
+    del lc, lv
     out["pq_adc.gathered_l2"] = dict(
-        max_abs_err=max(err_b2, err_b1), start_node_max_abs_err=err_s,
-        search_round_max_abs_err=err_gl, bound_ms=lb,
+        max_abs_err=max([err_b2, err_b1] + [f["max_abs_err"] for f in launch_rounds]),
+        start_node_max_abs_err=err_s, search_round_max_abs_err=err_gl, bound_ms=lb,
         bound_by=lby, shape=f"build round, two schemas B={Bb} C={Cb} V={V} M={M} K={Kc} N={N}",
-        page_start_max_abs_err=err_p1, forms=[one_schema, page_start],
+        page_start_max_abs_err=err_p1, forms=[one_schema, page_start] + launch_rounds,
         **timed(torch, lambda: K.pq_adc(luts_b, codes, versions, ids_b),
                 lambda: pq_adc_ref(luts_b, codes, versions, ids_b), None, 200))
     out["pq_adc.dense"] = dict(
@@ -690,6 +792,8 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
               ("serve_rerank", SERVE_BATCH, 50, 10, True),
               ("serve_stacked_merge", COLL_PARTS * SERVE_BATCH, 50 + C, 50, False),
               ("serve_exact", SERVE_BATCH, COLL_CAPACITY, 10, True)]
+    # the launcher (phase 11a): its build's and its queries' cuts
+    shapes += [(name, rows, n, L, False) for name, rows, n, L in LAUNCH_TOPK]
     for name, rows, n, L, mark in shapes:
         form = topk_form(n, L)
         d = (torch.randn(rows, n, generator=g, device=dev) if "normal" in name
@@ -906,6 +1010,28 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
             max_abs_err=err,
             **timed(torch, lambda: K.flat_l2_gathered(qg, xg, ig),
                     lambda: flat_l2_gathered_ref(qg, xg, ig), None, 200)))
+    # the launcher's rerank (phase 11a): one query, k' rows of its 756 at
+    # D=32, held to the f32 limit of these inputs
+    nb_, nc_ = LAUNCH_RERANK
+    ql = torch.randn(nb_, LAUNCH_D, generator=g, device=dev)
+    xl = torch.randn(LAUNCH_ROWS, LAUNCH_D, generator=g, device=dev)
+    il = torch.randint(0, LAUNCH_ROWS, (nb_, nc_), generator=g, device=dev, dtype=torch.int32)
+    got_l = K.flat_l2_gathered(ql, xl, il)
+    check(torch.allclose(got_l, flat_l2_gathered_ref(ql, xl, il), rtol=1e-5, atol=1e-5),
+          "flat_l2 gathered launcher rerank against its plain version")
+    ql64, xl64 = ql.double(), xl.double()
+    err = float((got_l.double() - ((ql64[:, None] - xl64[il.long()]) ** 2).sum(-1)).abs().max())
+    lim_l = (2 * math.sqrt(LAUNCH_D) * torch.finfo(torch.float32).eps
+             * float((ql64 * ql64).sum(1).max() + (xl64 * xl64).sum(1).max()))
+    check(err <= lim_l, f"flat_l2 gathered launcher rerank: err {err} > f32 limit {lim_l}")
+    gbd, gby_ = bound(nb_ * LAUNCH_D * 4 + int(torch.unique(il).numel()) * LAUNCH_D * 4
+                      + nb_ * nc_ * 8, 3 * nb_ * nc_ * LAUNCH_D)
+    gathered_forms.append(dict(
+        form="launcher rerank", shape=f"B={nb_} C={nc_} D={LAUNCH_D} N={LAUNCH_ROWS}",
+        bound_ms=gbd, bound_by=gby_, max_abs_err=err, f32_limit=lim_l,
+        **timed(torch, lambda: K.flat_l2_gathered(ql, xl, il),
+                lambda: flat_l2_gathered_ref(ql, xl, il), None, 200)))
+    del ql, xl, il, ql64, xl64, got_l
     out["flat_l2.gathered"] = dict(
         max_abs_err=max([err_r] + [f["max_abs_err"] for f in gathered_forms]),
         f32_limit=f32_limit, bound_ms=rb, bound_by=rby, shape=f"B={B} C=50 D={D}",
@@ -979,6 +1105,22 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
             bound_ms=eb, bound_by=eby, shape=f"N={n} D={D} M={M} K={Kc}",
             **timed(torch, lambda: K.pq_encode(xe, cb), lambda: pq_encode_ref(xe, cb), None,
                     200 if n < 10_000 else 20)))
+        del xe
+    # the launcher (phase 11a): its bootstrap and an insert mini-batch at
+    # D=32, M=8 (dsub 4)
+    lds = LAUNCH_D // LAUNCH_M
+    cbl = torch.randn(LAUNCH_M, Kc, lds, generator=g, device=dev)
+    for what, n in LAUNCH_ENCODE:
+        xe = torch.randn(n, LAUNCH_D, generator=g, device=dev)
+        gap, n_bad, n_all = encode_same(torch, K, xe, cbl, f"{what} N={n}")
+        eb, eby = bound(n * LAUNCH_D * 4 + LAUNCH_M * Kc * lds * 4 + n * LAUNCH_M,
+                        n * LAUNCH_M * Kc * 2 * lds)
+        shapes.append(dict(
+            form=what, rows=n, path="launcher", max_abs_err=gap, mismatches=n_bad,
+            compared=n_all, bound_ms=eb, bound_by=eby,
+            shape=f"N={n} D={LAUNCH_D} M={LAUNCH_M} K={Kc}",
+            **timed(torch, lambda: K.pq_encode(xe, cbl), lambda: pq_encode_ref(xe, cbl), None,
+                    200)))
         del xe
     main, *more = shapes
     out["pq_encode"] = dict(main, max_abs_err=max(e["max_abs_err"] for e in shapes + edges),
@@ -2319,6 +2461,330 @@ def serve_phase(torch, np, K, dev, svc, queries, draw, seed: int, plans: dict,
     return out, counts
 
 
+def timed_calls(torch, fn, log: list):
+    """fn with each call's host ms appended to log, the card synced before
+    and after."""
+    def wrapped(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t) * 1e3)
+        return out
+    return wrapped
+
+
+def param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def decode_bytes(cfg, model, cache, s_max: int, cache_len: int) -> dict:
+    """The bytes one decode step must move: each weight it reads once (the
+    embedding table only where it is the tied head, else the step's rows of
+    it), the f32 KV cache's positions before ``cache_len`` read for every
+    slot, the new position written, the f32 logits written."""
+    slots = cache[0][0].shape[1]
+    table = model.embed.numel() * model.embed.element_size()
+    tied = cfg.tie_embeddings
+    weights = param_bytes(model) - (0 if tied else table)
+    rows = 0 if tied else slots * cfg.d_model * model.embed.element_size()
+    per_pos = sum(t.numel() * t.element_size() for seg in cache for t in seg) // s_max
+    kv = per_pos * (cache_len + 1)  # read before cache_len, written at it
+    return dict(weights=weights + rows, kv=kv, logits=slots * cfg.vocab_size * 4,
+                total=weights + rows + kv + slots * cfg.vocab_size * 4)
+
+
+def lm_summary(r: dict) -> None:
+    b = r["decode_bound"]
+    print(f"lm {r['config']}: {r['requests']} requests, {r['tokens']} tokens, "
+          f"{r['tokens_per_s']:.1f} tok/s; decode p50 {r['decode_ms']['p50_ms']:.3f} / p95 "
+          f"{r['decode_ms']['p95_ms']:.3f} ms a step ({r['decode_ms']['n']} steps) against a "
+          f"bytes bound of p50 {r['decode_bound_ms']:.4f} ms ({b['weight_bytes']} weight bytes "
+          f"+ KV {b['kv_bytes_p50']} at cache_len p50 {b['cache_len_p50']:.0f} + logits "
+          f"{b['logit_bytes']}, over {HBM_BYTES_PER_S / 1e12:.2f} TB/s; all parameters "
+          f"{r['param_bytes']} bytes: {r['param_bytes'] / HBM_BYTES_PER_S * 1e3:.3f} ms); "
+          f"prefill p50 {r['prefill_ms']['p50_ms']:.3f} / p95 {r['prefill_ms']['p95_ms']:.3f} ms "
+          f"a request; peak {r['max_memory_allocated'] / 2**30:.2f} GiB allocated", flush=True)
+
+
+def lm_serve(torch, np, M, eng, prompts: list, new: int) -> dict:
+    """The prompts through a ServeEngine on the card, each asking for
+    ``new`` tokens: every prefill and decode call timed (host clock, card
+    synced; the model functions the engine calls are wrapped while it
+    runs), each step beside its bytes bound (decode_bytes at the step's
+    cache_len), the run's tokens/s. All must finish with ``new`` in-range
+    tokens."""
+    pre, dec, bounds, lens = [], [], [], []
+    prefill, decode = M.prefill, M.decode_step
+    timed_decode = timed_calls(torch, decode, dec)
+
+    def decode_at(model, cfg, tokens, cache, cache_len):
+        lens.append(cache_len)
+        bounds.append(decode_bytes(cfg, model, cache, eng.s_max, cache_len))
+        return timed_decode(model, cfg, tokens, cache, cache_len)
+
+    M.prefill, M.decode_step = timed_calls(torch, prefill, pre), decode_at
+    for rid, p in enumerate(prompts):
+        eng.submit(rid, p, max_new_tokens=new)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        out = eng.run()
+    finally:
+        M.prefill, M.decode_step = prefill, decode
+    wall = time.perf_counter() - t
+    V = eng.cfg.vocab_size
+    check(sorted(out) == list(range(len(prompts))), f"requests served: {sorted(out)}")
+    check(all(len(v) == new and all(0 <= x < V for x in v) for v in out.values()),
+          f"each request must end with {new} tokens in [0, {V})")
+    tokens = sum(len(v) for v in out.values())
+    total = [b["total"] for b in bounds]
+    return dict(requests=len(out), tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+                prefill_ms=wall_stats(np, pre), decode_ms=wall_stats(np, dec),
+                decode_bound_ms=float(np.median(total)) / HBM_BYTES_PER_S * 1e3,
+                decode_bound=dict(by="bytes", weight_bytes=bounds[0]["weights"],
+                                  logit_bytes=bounds[0]["logits"],
+                                  kv_bytes_p50=int(np.median([b["kv"] for b in bounds])),
+                                  cache_len_p50=float(np.median(lens)),
+                                  step_ms_min=min(total) / HBM_BYTES_PER_S * 1e3,
+                                  step_ms_max=max(total) / HBM_BYTES_PER_S * 1e3))
+
+
+def launch_answers(np, served: dict, mode: str) -> dict:
+    """The launcher's search answers (request i asked for the k nearest to
+    row i + 0.01) against exact float64 ones: every row ascending, its
+    distances those of its ids within the f32 limit of these inputs,
+    recall@k at least LAUNCH_RECALL_FLOOR."""
+    corpus = served["corpus"]
+    ids = np.stack([r.ids for r in served["search"]])
+    dists = np.stack([r.dists for r in served["search"]]).astype(np.float64)
+    n, k = ids.shape
+    x = corpus.astype(np.float64)
+    q = (corpus[:n] + 0.01).astype(np.float64)  # the queries as the launcher made them (f32)
+    d = ((q[:, None] - x[None]) ** 2).sum(-1)
+    check(bool(((ids >= 0) & (ids < len(x))).all()), f"launcher {mode}: ids out of range {ids}")
+    err = float(np.abs(dists - np.take_along_axis(d, ids, 1)).max())
+    lim = (2 * math.sqrt(x.shape[1]) * float(np.finfo(np.float32).eps)
+           * float((q * q).sum(1).max() + (x * x).sum(1).max()))
+    truth = np.argsort(d, axis=1, kind="stable")[:, :k]
+    recall = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(ids, truth)]))
+    out = dict(ids=ids, max_abs_err=err, f32_limit=lim, recall_at_k=recall)
+    check(bool((np.diff(dists, axis=1) >= 0).all()), f"launcher {mode}: answers not ascending")
+    check(err <= lim, f"launcher {mode}: distances differ from their ids' by {err} > {lim}")
+    check(recall >= LAUNCH_RECALL_FLOOR,
+          f"launcher {mode}: recall@{k} {recall} < {LAUNCH_RECALL_FLOOR}")
+    return out
+
+
+def greedy_run(torch, M, cfg, model, tokens, dev, decodes: int, feed=None):
+    """prefill over tokens (B, S), then ``decodes`` decode steps, each fed
+    the card's greedy token (``feed``: the tokens to force). Returns the
+    logits (B, 1 + decodes, V) f32 on the CPU and the tokens fed."""
+    S = tokens.shape[1]
+    cache = M.init_cache(cfg, tokens.shape[0], LM_S_MAX, torch.float32, dev)
+    logits, cache = M.prefill(model, cfg, {"tokens": tokens.to(dev)}, cache)
+    outs, fed = [logits], []
+    for step in range(decodes):
+        tok = outs[-1][:, 0].argmax(-1) if feed is None else feed[step]
+        fed.append(tok.cpu())
+        logits, cache = M.decode_step(model, cfg, tok.to(dev)[:, None], cache, S + step)
+        outs.append(logits)
+    return torch.cat([o.float().cpu() for o in outs], dim=1), fed
+
+
+def card_vs_cpu(torch, M, cfg, model, tokens, dtype: str, dev) -> dict:
+    """11c: the model on the card and a copy on the CPU, the CPU
+    teacher-forced with the card's tokens: the largest logit difference over
+    the CPU logits' max-abs within CARD_CPU_REL[dtype]; the greedy tokens
+    equal wherever the CPU's top-2 margin exceeds twice the largest
+    difference (no rounding within it can flip them)."""
+    cpu_model = copy.deepcopy(model).to("cpu")
+    t = time.perf_counter()
+    card, fed = greedy_run(torch, M, cfg, model, tokens, dev, CPU_DECODES)
+    cpu, _ = greedy_run(torch, M, cfg, cpu_model, tokens, torch.device("cpu"), CPU_DECODES, fed)
+    err = float((card - cpu).abs().max())
+    rel = err / float(cpu.abs().max())
+    top2 = cpu.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * err
+    agree = card.argmax(-1) == cpu.argmax(-1)
+    out = dict(dtype=dtype, logits=list(card.shape), max_abs_err=err, rel_err=rel,
+               tol=CARD_CPU_REL[dtype], greedy_decided=int(decided.sum()),
+               greedy_equal=int((agree & decided).sum()), greedy_equal_all=int(agree.sum()),
+               seconds=time.perf_counter() - t)
+    print(f"lm card vs CPU ({dtype}): " + json.dumps(out), flush=True)
+    check(rel <= CARD_CPU_REL[dtype], f"{dtype} card and CPU logits differ by {rel:.3g} of "
+          f"their max-abs > {CARD_CPU_REL[dtype]}")
+    check(bool(agree[decided].all()), f"{dtype}: a greedy token differs where the CPU's "
+          f"top-2 margin exceeds {2 * err:.3g}")
+    return out
+
+
+def decode_consistency(torch, M, cfg, model, tok, dev) -> dict:
+    """Last-position logits of prefill over tok (B, S) against prefill over
+    S - 1 tokens then one decode_step of the last: the largest difference,
+    for f32 over its allowance rtol = atol = QWEN_F32_TOL (bf16's is set
+    against f32 by the caller), and over rtol = atol = QWEN_CONSISTENCY_TOL.
+    The logits themselves stay under ``full`` and ``step`` (f32, on the
+    card)."""
+    S = tok.shape[1]
+    full, _ = M.prefill(model, cfg, {"tokens": tok},
+                        M.init_cache(cfg, tok.shape[0], LM_S_MAX, torch.float32, dev))
+    _, cache = M.prefill(model, cfg, {"tokens": tok[:, :-1]},
+                         M.init_cache(cfg, tok.shape[0], LM_S_MAX, torch.float32, dev))
+    step, _ = M.decode_step(model, cfg, tok[:, -1:], cache, S - 1)
+    diff = (step - full).abs()
+    out = dict(dtype=cfg.compute_dtype, max_abs_err=float(diff.max()),
+               max_abs_logit=float(full.abs().max()),
+               worst_over_3e2=float((diff / (QWEN_CONSISTENCY_TOL * (1 + full.abs()))).max()),
+               full=full, step=step)
+    if cfg.compute_dtype == "float32":
+        out["worst_over_allowed"] = float((diff / (QWEN_F32_TOL * (1 + full.abs()))).max())
+    return out
+
+
+def lm_phase(torch, np, K, dev, seed: int, work: Path, prof_dir: Path | None) -> tuple[dict, dict]:
+    """Phase 11. (a) The serving launcher, ``repro_torch.launch.serve.main``,
+    once in each dispatch mode (launches counted from 0: every form of
+    LAUNCH_FORMS must launch); (b) smollm-135m at full width served by
+    ServeEngine; (c) its weights on the card against a CPU copy, in bf16 and
+    in f32; (d) qwen3-14b at full width: decode consistency, then served.
+    The LM path launches none of the port's kernels (asserted)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+
+    # -- 11a: the launcher, once in each dispatch mode ----------------------
+    work.mkdir(parents=True, exist_ok=True)
+    trace, metrics = work / "launch_trace.jsonl", work / "launch_metrics.txt"
+    K.reset_launch_counts()
+    runs = {"serial": ["--policy", "adaptive", "--resident-frac", "0.25",
+                       "--trace-out", str(trace), "--metrics-out", str(metrics)],
+            "replica": ["--lanes", "4"], "spmd": []}
+    launcher, answers = {}, {}
+    for mode, extra in runs.items():
+        t = time.perf_counter()
+        served = launch_serve.main(["--dispatch-mode", mode] + extra)
+        torch.cuda.synchronize()
+        launcher[mode] = time.perf_counter() - t
+        answers[mode] = launch_answers(np, served, mode)
+    counts = K.launch_counts()  # phase 11's kernels: the launcher's vector half
+    encode_by_rows = K.encode_launches_by_rows()
+    check(trace.stat().st_size > 0 and metrics.stat().st_size > 0,
+          "the launcher's trace or metrics file is empty")
+    missing = [f for f in LAUNCH_FORMS if counts[f] <= 0]
+    check(not missing, f"phase 11a: {missing} did not launch")
+    # the serial run again on the CPU (the plain versions): the same corpus,
+    # queries and flags; its graph is built there anew
+    t = time.perf_counter()
+    cpu_ids = launch_answers(np, launch_serve.main(["--device", "cpu", "--dispatch-mode", "serial"]
+                                                   + runs["serial"][:4]), "serial, CPU")["ids"]
+    cpu_s = time.perf_counter() - t
+    cpu_equal = float((answers["serial"]["ids"] == cpu_ids).mean())
+    out["launcher"] = dict(seconds=launcher, trace_bytes=trace.stat().st_size,
+                           metrics_bytes=metrics.stat().st_size,
+                           launches={f: v for f, v in counts.items() if v},
+                           encode_by_rows=encode_by_rows,
+                           answers={m: dict(recall_at_k=a["recall_at_k"],
+                                            max_abs_err=a["max_abs_err"],
+                                            f32_limit=a["f32_limit"])
+                                    for m, a in answers.items()},
+                           cpu_serial_ids_equal=cpu_equal, cpu_seconds=cpu_s)
+    print("lm launcher: " + json.dumps(out["launcher"]), flush=True)
+    check(cpu_equal >= LAUNCH_CPU_EQUAL, f"the launcher's serial answers on the card and "
+          f"the CPU: ids equal in {cpu_equal} of the slots < {LAUNCH_CPU_EQUAL}")
+
+    # -- 11b: smollm-135m at full width -------------------------------------
+    K.reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.RandomState(seed)
+    cfg = get_config("smollm-135m")
+    t = time.perf_counter()
+    model = M.init_params(torch.Generator(dev).manual_seed(seed), cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    warm = ServeEngine(cfg, model, batch_slots=1, s_max=64)  # cuBLAS and allocator warm-up
+    warm.submit(0, rng.randint(0, cfg.vocab_size, 8), max_new_tokens=4)
+    warm.run()
+    prompts = [rng.randint(0, cfg.vocab_size, rng.randint(SMOL_PROMPT[0], SMOL_PROMPT[1] + 1))
+               for _ in range(SMOL_REQUESTS)]
+    served = lm_serve(torch, np, M, ServeEngine(cfg, model, LM_SLOTS, LM_S_MAX), prompts,
+                      SMOL_NEW)
+    out["smollm"] = dict(config=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+                         vocab=cfg.vocab_size, dtype=cfg.param_dtype, params=cfg.param_count(),
+                         param_bytes=param_bytes(model), init_s=init_s, slots=LM_SLOTS,
+                         s_max=LM_S_MAX, prompt_lens=[len(p) for p in prompts], **served,
+                         max_memory_allocated=torch.cuda.max_memory_allocated())
+    print("lm smollm-135m: " + json.dumps(out["smollm"]), flush=True)
+    lm_summary(out["smollm"])
+
+    # -- 11c: the card against the CPU on 11b's weights, bf16 then f32 -------
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, CPU_PROMPT)).astype(np.int64))
+    out["card_vs_cpu"] = [card_vs_cpu(torch, M, cfg, model, tokens, cfg.param_dtype, dev)]
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    out["card_vs_cpu"].append(card_vs_cpu(torch, M, cfg32, copy.deepcopy(model).float(),
+                                          tokens, "float32", dev))
+    prof = {}
+    if prof_dir is not None:
+        cache = M.init_cache(cfg, LM_SLOTS, LM_S_MAX, torch.float32, dev)
+        tok = torch.zeros((LM_SLOTS, 1), dtype=torch.long, device=dev)
+        prof.update(profile_runs(torch, {"lm_decode_smollm": [
+            lambda: M.decode_step(model, cfg, tok, cache, 64)] * 2}, prof_dir))
+    del model, warm
+    torch.cuda.empty_cache()
+
+    # -- 11d: qwen3-14b at full width ----------------------------------------
+    cfg = get_config("qwen3-14b")
+    t = time.perf_counter()
+    model = M.init_params(torch.Generator(dev).manual_seed(seed), cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    tok = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, QWEN_PROMPT)).astype(np.int64)).to(dev)
+    c16 = decode_consistency(torch, M, cfg, model, tok, dev)
+    prompts = [rng.randint(0, cfg.vocab_size, QWEN_PROMPT) for _ in range(QWEN_PROMPTS)]
+    served = lm_serve(torch, np, M, ServeEngine(cfg, model, LM_SLOTS, LM_S_MAX), prompts,
+                      QWEN_NEW)
+    out["qwen3"] = dict(config=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+                        heads=[cfg.num_heads, cfg.num_kv_heads], vocab=cfg.vocab_size,
+                        dtype=cfg.param_dtype, params=cfg.param_count(),
+                        param_bytes=param_bytes(model), init_s=init_s, slots=LM_SLOTS,
+                        s_max=LM_S_MAX, **served)
+    if prof_dir is not None:
+        cache = M.init_cache(cfg, LM_SLOTS, LM_S_MAX, torch.float32, dev)
+        zeros = torch.zeros((LM_SLOTS, 1), dtype=torch.long, device=dev)
+        prof.update(profile_runs(torch, {"lm_decode_qwen3": [
+            lambda: M.decode_step(model, cfg, zeros, cache, 64)] * 2}, prof_dir))
+        del cache
+    # the same weights in f32 (59 GB, converted in place): the consistency
+    # without bf16 rounding, and the bf16 logits' distance from f32 ones
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    c32 = decode_consistency(torch, M, cfg32, model.float(), tok, dev)
+    for key in ("full", "step"):
+        c16[f"{key}_vs_f32_max_abs"] = float((c16.pop(key) - c32.pop(key)).abs().max())
+    c16["allowed_max_abs"] = min(c16["full_vs_f32_max_abs"], c16["step_vs_f32_max_abs"])
+    c16["worst_over_allowed"] = c16["max_abs_err"] / c16["allowed_max_abs"]
+    consistency = out["qwen3"]["decode_consistency"] = {"bfloat16": c16, "float32": c32}
+    del model
+    torch.cuda.empty_cache()
+    out["qwen3"]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print("lm qwen3-14b: " + json.dumps(out["qwen3"]), flush=True)
+    lm_summary(out["qwen3"])
+    lm_counts = K.launch_counts()
+    out["profile"] = prof or None
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 11: {out['seconds']:.1f} s (budget {LM_BUDGET_S:.0f} s)", flush=True)
+    for dtype, c in consistency.items():
+        check(c["worst_over_allowed"] <= 1.0, f"qwen3-14b {dtype}: prefill over S and prefill "
+              f"over S-1 + one decode step differ past their bound: {json.dumps(c)}")
+    check(not any(lm_counts.values()), f"the LM path launched port kernels: {lm_counts}")
+    check(out["seconds"] <= LM_BUDGET_S, f"phase 11 took {out['seconds']:.1f} s > {LM_BUDGET_S} s")
+    return out, counts
+
+
 def rec_at(np, responses, truth, k: int) -> float:
     from repro_torch.core import recall as rec
 
@@ -2409,7 +2875,8 @@ def run(args) -> int:
         entry.update(k)
         if name == "pq_encode":  # each timed shape's launches on the main path
             for f in [entry] + entry["forms"]:
-                f["launches_at_rows"] = path["pq_encode_launches_by_rows"].get(f["rows"], 0)
+                if f.get("path") != "launcher":  # those are counted in phase 11
+                    f["launches_at_rows"] = path["pq_encode_launches_by_rows"].get(f["rows"], 0)
         line["kernels"].append(entry)
     prof = profile(torch, np, idx, q, draw, Path(args.out).parent) if args.profile else None
 
@@ -2458,13 +2925,25 @@ def run(args) -> int:
         print(f"launches {name}: {serve_counts[name]} in phase 10, per served query "
               f"{entry['launches_per_served_query_serial']:.2f} serial, "
               f"{entry['launches_per_served_query_spmd']:.2f} stacked", flush=True)
+    # 11. the serving launcher and the dense LM stack
+    lm, lm_counts = lm_phase(torch, np, K, dev, args.seed, ROOT / "build" / "lm_phase",
+                             Path(args.out).parent if args.profile else None)
+    for entry in line["kernels"]:
+        name = entry["name"]
+        entry["launches_launcher"] = lm_counts[name]
+        entry["launches"] += lm_counts[name]
+        print(f"launches {name}: {lm_counts[name]} in phase 11 (the launcher)", flush=True)
+        if name == "pq_encode":  # the launcher's shapes' launches in phase 11a
+            for f in entry["forms"]:
+                if f.get("path") == "launcher":
+                    f["launches_at_rows"] = lm["launcher"]["encode_by_rows"].get(f["rows"], 0)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(kernels=line["kernels"], main_path=path,
                                                   card_vs_cpu=versus, wide_cuts=wide,
                                                   wide_turns=wide_turns, profile=prof,
                                                   updates=updates, collection=collection,
-                                                  serve=serve, card=card,
+                                                  serve=serve, lm=lm, card=card,
                                                   launch_floor_ms=floor_ms),
                                              indent=1))
     print(json.dumps(line))

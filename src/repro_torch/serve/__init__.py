@@ -1,12 +1,12 @@
 """The port's serving layer (the counterpart of ``repro.serve``): the vector
 service and its engine, with every plane the reference has -- micro-batching
 and admission, the dispatch lanes, tracing and the labeled registry, the
-adaptive policy, continuation tokens and the declarative predicates. The LM
-serving engine (``repro.serve.engine``) belongs to the LM stack and is not
-ported here.
+adaptive policy, continuation tokens and the declarative predicates -- and
+the batched LM engine (``ServeEngine``, ``serve/engine.py``).
 """
 from .continuation import (ContinuationError, decode_continuation,
                            encode_continuation)
+from .engine import ServeEngine
 from .metrics import (EngineMetrics, ExactHistogram, Histogram, SimClock,
                       poisson_arrivals)
 from .obs import MetricsRegistry, RollupWindow
@@ -21,7 +21,7 @@ from .vector_service import (DeadlineExceeded, QueryResult,
                              VectorCollectionService, VectorQuery)
 
 __all__ = [
-    "VectorCollectionService", "VectorQuery", "QueryResult",
+    "VectorCollectionService", "VectorQuery", "QueryResult", "ServeEngine",
     "VectorServeEngine", "EngineConfig", "ServeRequest", "ServeResponse",
     "Throttled", "DeadlineExceeded",
     "EngineMetrics", "SimClock", "poisson_arrivals",
