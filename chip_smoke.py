@@ -146,6 +146,35 @@ Phases, each printed on its own lines; any failure exits non-zero:
     the peak allocated memory printed. The LM path launches none of the
     port's kernels (asserted), and phase 11 must take at most LM_BUDGET_S.
     With ``--profile``, one decode step of each model is profiled.
+12. the MoE, MLA and SSM LM stacks, after phase 11, each model freed
+    before the next: (a) deepseek-v2-lite-16b (MLA + 64 experts top-6 + 2
+    shared, 27 layers, 32.4 GB), (b) qwen3-moe-235b-a22b at its published
+    widths (128 experts top-8, GQA 64/4, qk_norm) cut to 4 of its 94
+    layers, (c) zamba2-1.2b (38 layers, Mamba2 with attention every sixth)
+    and (d) rwkv6-7b (32 layers), bf16 seeded weights made on the card, f32
+    caches, ServeEngine with 4 slots and S_max 256 serving 4 prompts of 64
+    tokens (zamba2: 128, its chunk) x 16 new: decode ms a step and prefill
+    ms a request (p50 / p95), tokens/s, init s, peak allocated memory, the
+    step's bytes bound (decode_bytes: KV caches at the step's cache_len, SSM
+    states read and written whole), for MoE also the bound of the experts
+    the step routes to beside the reference formulation's (every expert
+    read), and the routes each prefill drops; with ``--profile`` the
+    launches and busy share of one decode step. (e) The published widths at
+    a cut depth (deepseek 2 layers, zamba2 its first 6, rwkv6 2, qwen3-moe
+    its smoke config) on the card against a CPU copy of the same weights, a
+    prefill of 2 x 64 tokens and 3 decodes teacher-forced with the card's
+    tokens, in bf16 and in f32 (as 11c: logits within CARD_CPU_REL of their
+    max-abs, greedy tokens equal where the CPU's top-2 margin decides them);
+    in f32 every MoE route's expert and drop equal, in bf16 each differing
+    route reported with the CPU router's margin. (f) In f32 on
+    the card at those depths, rtol = atol = MOE_SSM_F32_TOL: zamba2 and
+    rwkv6 prefill(S) + 3 decodes against forward_train over S + 3 tokens;
+    the MoE configs' prefill against forward_train's last position on the
+    same tokens (capacity depends on how many tokens a call routes, so a
+    decode may drop otherwise); deepseek's absorbed ``mla_decode`` after
+    ``mla_prefill`` against ``mla_train`` over S + 1 on layer 0's
+    full-width weights. (g) No port kernel launches (asserted); phase 12
+    must take at most MOE_SSM_BUDGET_S.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -295,6 +324,21 @@ QWEN_PROMPTS, QWEN_PROMPT, QWEN_NEW = 4, 64, 16  # 11d's requests
 # reported
 QWEN_CONSISTENCY_TOL = 3e-2
 QWEN_F32_TOL = 1e-3
+# phase 12: the MoE, MLA and SSM LM stacks
+MOE_SSM_BUDGET_S = 150.0  # phase 12 must fit in this
+# (a)-(d): (arch, layers served (None: all), prompt tokens); 4 requests x 16
+# new. qwen3-moe's 94 layers are ~470 GB in bf16, six cards' worth; zamba2's
+# prompt is its chunk, rwkv6's its chunk (a prefill must be a multiple)
+MOE_SSM_SERVED = (("deepseek-v2-lite-16b", None, 64), ("qwen3-moe-235b-a22b", 4, 64),
+                  ("zamba2-1.2b", None, 128), ("rwkv6-7b", None, 64))
+MOE_SSM_REQUESTS, MOE_SSM_NEW = 4, 16
+# (e), (f): the published widths at these depths (0: the smoke config)
+MOE_SSM_CUT = (("deepseek-v2-lite-16b", 2), ("qwen3-moe-235b-a22b", 0), ("zamba2-1.2b", 6),
+               ("rwkv6-7b", 2))
+CUT_PROMPT, CUT_DECODES = 64, 3  # (e): 2 prompts of 64 tokens, 3 teacher-forced steps
+# (f): prompt S (SSM: two chunks of rwkv6, one of zamba2, so forward_train
+# over S + 3 pads), then 3 decodes; f32 on the card, rtol = atol = this
+CONSIST_PROMPT, MOE_SSM_F32_TOL = 128, 1e-3
 
 # the kernel forms each part of phase 8 must launch
 UPDATE_FORMS = {
@@ -2481,17 +2525,48 @@ def param_bytes(model) -> int:
 def decode_bytes(cfg, model, cache, s_max: int, cache_len: int) -> dict:
     """The bytes one decode step must move: each weight it reads once (the
     embedding table only where it is the tied head, else the step's rows of
-    it), the f32 KV cache's positions before ``cache_len`` read for every
-    slot, the new position written, the f32 logits written."""
-    slots = cache[0][0].shape[1]
+    it), the f32 KV caches' positions before ``cache_len`` read for every
+    slot and the new position written, the SSM states (dict segments) read
+    and written whole, the f32 logits written."""
+    from repro_torch.models.model import cache_leaves
+
+    slots = cache_leaves(cache[0])[0].shape[1]
     table = model.embed.numel() * model.embed.element_size()
     tied = cfg.tie_embeddings
     weights = param_bytes(model) - (0 if tied else table)
     rows = 0 if tied else slots * cfg.d_model * model.embed.element_size()
-    per_pos = sum(t.numel() * t.element_size() for seg in cache for t in seg) // s_max
+    nbytes = lambda t: t.numel() * t.element_size()
+    per_pos = sum(nbytes(t) for seg in cache if not isinstance(seg, dict) for t in seg) // s_max
     kv = per_pos * (cache_len + 1)  # read before cache_len, written at it
-    return dict(weights=weights + rows, kv=kv, logits=slots * cfg.vocab_size * 4,
-                total=weights + rows + kv + slots * cfg.vocab_size * 4)
+    state = 2 * sum(nbytes(t) for seg in cache if isinstance(seg, dict) for t in seg.values())
+    logits = slots * cfg.vocab_size * 4
+    return dict(weights=weights + rows, kv=kv + state, logits=logits,
+                total=weights + rows + kv + state + logits)
+
+
+def expert_bytes(model) -> tuple[int, int]:
+    """(all routed experts' weight bytes, one expert's in one layer)."""
+    ws = [blk["ffn"][w] for blk in model.blocks for w in ("w1", "w2", "w3")]
+    total = sum(w.numel() * w.element_size() for w in ws)
+    return total, sum(w[0].numel() * w.element_size() for w in ws[:3])
+
+
+class RouteLog:
+    """While active, keeps each ``moe.route`` call's Routing (the MoE FFN
+    finds ``route`` through its module, so the model's calls pass here)."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        if self.moe is not None:
+            self.route = route = self.moe.route
+            self.moe.route = lambda *a: self.calls.append(route(*a)) or self.calls[-1]
+        return self
+
+    def __exit__(self, *exc):
+        if self.moe is not None:
+            self.moe.route = self.route
 
 
 def lm_summary(r: dict) -> None:
@@ -2507,29 +2582,42 @@ def lm_summary(r: dict) -> None:
           f"a request; peak {r['max_memory_allocated'] / 2**30:.2f} GiB allocated", flush=True)
 
 
-def lm_serve(torch, np, M, eng, prompts: list, new: int) -> dict:
+def lm_serve(torch, np, M, eng, prompts: list, new: int, moe=None) -> dict:
     """The prompts through a ServeEngine on the card, each asking for
     ``new`` tokens: every prefill and decode call timed (host clock, card
     synced; the model functions the engine calls are wrapped while it
     runs), each step beside its bytes bound (decode_bytes at the step's
     cache_len), the run's tokens/s. All must finish with ``new`` in-range
-    tokens."""
+    tokens. With ``moe`` (the MoE module, for an MoE model) the routes are
+    logged: each prefill's dropped routes, and a second bound per step that
+    reads only the experts the step routes to."""
     pre, dec, bounds, lens = [], [], [], []
     prefill, decode = M.prefill, M.decode_step
-    timed_decode = timed_calls(torch, decode, dec)
+    timed_decode, timed_prefill = timed_calls(torch, decode, dec), timed_calls(torch, prefill, pre)
+    log, step_routes, prefill_routes = RouteLog(moe), [], []
 
     def decode_at(model, cfg, tokens, cache, cache_len):
         lens.append(cache_len)
         bounds.append(decode_bytes(cfg, model, cache, eng.s_max, cache_len))
-        return timed_decode(model, cfg, tokens, cache, cache_len)
+        n = len(log.calls)
+        out = timed_decode(model, cfg, tokens, cache, cache_len)
+        step_routes.append(log.calls[n:])
+        return out
 
-    M.prefill, M.decode_step = timed_calls(torch, prefill, pre), decode_at
+    def prefill_at(*args):
+        n = len(log.calls)
+        out = timed_prefill(*args)
+        prefill_routes.append(log.calls[n:])
+        return out
+
+    M.prefill, M.decode_step = prefill_at, decode_at
     for rid, p in enumerate(prompts):
         eng.submit(rid, p, max_new_tokens=new)
     torch.cuda.synchronize()
     t = time.perf_counter()
     try:
-        out = eng.run()
+        with log:
+            out = eng.run()
     finally:
         M.prefill, M.decode_step = prefill, decode
     wall = time.perf_counter() - t
@@ -2539,15 +2627,31 @@ def lm_serve(torch, np, M, eng, prompts: list, new: int) -> dict:
           f"each request must end with {new} tokens in [0, {V})")
     tokens = sum(len(v) for v in out.values())
     total = [b["total"] for b in bounds]
-    return dict(requests=len(out), tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
-                prefill_ms=wall_stats(np, pre), decode_ms=wall_stats(np, dec),
-                decode_bound_ms=float(np.median(total)) / HBM_BYTES_PER_S * 1e3,
-                decode_bound=dict(by="bytes", weight_bytes=bounds[0]["weights"],
-                                  logit_bytes=bounds[0]["logits"],
-                                  kv_bytes_p50=int(np.median([b["kv"] for b in bounds])),
-                                  cache_len_p50=float(np.median(lens)),
-                                  step_ms_min=min(total) / HBM_BYTES_PER_S * 1e3,
-                                  step_ms_max=max(total) / HBM_BYTES_PER_S * 1e3))
+    res = dict(requests=len(out), tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+               prefill_ms=wall_stats(np, pre), decode_ms=wall_stats(np, dec),
+               decode_bound_ms=float(np.median(total)) / HBM_BYTES_PER_S * 1e3,
+               decode_bound=dict(by="bytes", weight_bytes=bounds[0]["weights"],
+                                 logit_bytes=bounds[0]["logits"],
+                                 kv_bytes_p50=int(np.median([b["kv"] for b in bounds])),
+                                 cache_len_p50=float(np.median(lens)),
+                                 step_ms_min=min(total) / HBM_BYTES_PER_S * 1e3,
+                                 step_ms_max=max(total) / HBM_BYTES_PER_S * 1e3))
+    if moe is not None:
+        # the experts each step routes to, layer by layer: (slots x top_k at most)
+        all_experts, one = expert_bytes(eng.model)
+        distinct = [[int(r.experts.unique().numel()) for r in step] for step in step_routes]
+        routed = [b["total"] - all_experts + sum(d) * one for b, d in zip(bounds, distinct)]
+        res["routed_bound_ms"] = float(np.median(routed)) / HBM_BYTES_PER_S * 1e3
+        res["routed_bound"] = dict(
+            by="bytes", expert_bytes_all=all_experts, expert_bytes_one=one,
+            experts_per_layer_p50=float(np.median([x for d in distinct for x in d])),
+            experts_per_layer_max=max(x for d in distinct for x in d),
+            step_ms_min=min(routed) / HBM_BYTES_PER_S * 1e3,
+            step_ms_max=max(routed) / HBM_BYTES_PER_S * 1e3)
+        res["prefill_dropped_routes"] = [sum(int((~r.kept).sum()) for r in calls)
+                                         for calls in prefill_routes]
+        res["prefill_routes"] = [sum(r.kept.numel() for r in calls) for calls in prefill_routes]
+    return res
 
 
 def launch_answers(np, served: dict, mode: str) -> dict:
@@ -2592,30 +2696,43 @@ def greedy_run(torch, M, cfg, model, tokens, dev, decodes: int, feed=None):
     return torch.cat([o.float().cpu() for o in outs], dim=1), fed
 
 
-def card_vs_cpu(torch, M, cfg, model, tokens, dtype: str, dev) -> dict:
-    """11c: the model on the card and a copy on the CPU, the CPU
+def card_vs_cpu(torch, M, cfg, model, tokens, dtype: str, dev, decodes: int = CPU_DECODES,
+                moe=None) -> dict:
+    """11c, 12e: the model on the card and a copy on the CPU, the CPU
     teacher-forced with the card's tokens: the largest logit difference over
     the CPU logits' max-abs within CARD_CPU_REL[dtype]; the greedy tokens
     equal wherever the CPU's top-2 margin exceeds twice the largest
-    difference (no rounding within it can flip them)."""
+    difference (no rounding within it can flip them). With ``moe`` (the MoE
+    module) every route is compared: in f32 each route's expert and whether
+    it was dropped must be equal; in bf16 the differing routes are
+    reported with the CPU router's margin."""
     cpu_model = copy.deepcopy(model).to("cpu")
     t = time.perf_counter()
-    card, fed = greedy_run(torch, M, cfg, model, tokens, dev, CPU_DECODES)
-    cpu, _ = greedy_run(torch, M, cfg, cpu_model, tokens, torch.device("cpu"), CPU_DECODES, fed)
+    with RouteLog(moe) as card_log:
+        card, fed = greedy_run(torch, M, cfg, model, tokens, dev, decodes)
+    with RouteLog(moe) as cpu_log:
+        cpu, _ = greedy_run(torch, M, cfg, cpu_model, tokens, torch.device("cpu"), decodes, fed)
+    del cpu_model
     err = float((card - cpu).abs().max())
     rel = err / float(cpu.abs().max())
     top2 = cpu.topk(2, dim=-1).values
     decided = (top2[..., 0] - top2[..., 1]) > 2 * err
     agree = card.argmax(-1) == cpu.argmax(-1)
-    out = dict(dtype=dtype, logits=list(card.shape), max_abs_err=err, rel_err=rel,
-               tol=CARD_CPU_REL[dtype], greedy_decided=int(decided.sum()),
-               greedy_equal=int((agree & decided).sum()), greedy_equal_all=int(agree.sum()),
-               seconds=time.perf_counter() - t)
+    out = dict(config=cfg.name, layers=cfg.num_layers, dtype=dtype, logits=list(card.shape),
+               max_abs_err=err, rel_err=rel, tol=CARD_CPU_REL[dtype],
+               greedy_decided=int(decided.sum()), greedy_equal=int((agree & decided).sum()),
+               greedy_equal_all=int(agree.sum()), seconds=time.perf_counter() - t)
+    if moe is not None:
+        out["routes"] = route_diff(card_log.calls, cpu_log.calls, cfg.moe.top_k)
     print(f"lm card vs CPU ({dtype}): " + json.dumps(out), flush=True)
-    check(rel <= CARD_CPU_REL[dtype], f"{dtype} card and CPU logits differ by {rel:.3g} of "
-          f"their max-abs > {CARD_CPU_REL[dtype]}")
-    check(bool(agree[decided].all()), f"{dtype}: a greedy token differs where the CPU's "
-          f"top-2 margin exceeds {2 * err:.3g}")
+    check(bool(torch.isfinite(card).all()), f"{cfg.name} {dtype}: non-finite logits on the card")
+    check(rel <= CARD_CPU_REL[dtype], f"{cfg.name} {dtype}: card and CPU logits differ by "
+          f"{rel:.3g} of their max-abs > {CARD_CPU_REL[dtype]}")
+    check(bool(agree[decided].all()), f"{cfg.name} {dtype}: a greedy token differs where the "
+          f"CPU's top-2 margin exceeds {2 * err:.3g}")
+    if moe is not None and dtype == "float32":
+        check(out["routes"]["differ"] == 0, f"{cfg.name} f32: routes differ between the card "
+              f"and the CPU: {json.dumps(out['routes'])}")
     return out
 
 
@@ -2785,6 +2902,168 @@ def lm_phase(torch, np, K, dev, seed: int, work: Path, prof_dir: Path | None) ->
     return out, counts
 
 
+def cut_depth(cfg, n: int):
+    """cfg with its first n layers (a hybrid's pattern cut with them)."""
+    return dataclasses.replace(cfg, num_layers=n, block_pattern=cfg.block_pattern[:n])
+
+
+def route_diff(card: list, cpu: list, top_k: int) -> dict:
+    """Each route (call, token, round) on the card against the CPU's: the
+    count whose expert or kept flag differs, and the smallest CPU router
+    margin (k-th minus (k+1)-th probability of the token) among them."""
+    differ, margins, routes = 0, [], 0
+    for a, b in zip(card, cpu):
+        bad = (a.experts.cpu() != b.experts) | (a.kept.cpu() != b.kept)  # (n,G,k)
+        routes += bad.numel()
+        differ += int(bad.sum())
+        if bad.any():
+            p = b.probs.sort(dim=-1, descending=True).values  # (n,G,E)
+            gap = p[..., top_k - 1] - p[..., top_k]
+            margins += gap[bad.any(-1)].tolist()
+    return dict(calls=len(cpu), routes=routes, differ=differ,
+                min_margin_of_differing=min(margins) if margins else None,
+                dropped_card=sum(int((~r.kept).sum()) for r in card),
+                dropped_cpu=sum(int((~r.kept).sum()) for r in cpu))
+
+
+def worst(full, part) -> float:
+    """max |part - full| / (MOE_SSM_F32_TOL (1 + |full|)): at most 1 passes
+    rtol = atol = MOE_SSM_F32_TOL."""
+    return float(((part - full).abs() / (MOE_SSM_F32_TOL * (1 + full.abs()))).max())
+
+
+def moe_ssm_consistency(torch, M, cfg, model, tok, dev) -> dict:
+    """12f, f32 on the card. SSM and hybrid: prefill over tok[:, :S] then
+    3 decodes of the next tokens against forward_train over all S + 3, at
+    positions S - 1 .. S + 2. MoE: prefill's last logits against
+    forward_train's last position over the same S tokens."""
+    S = tok.shape[1] - (0 if cfg.moe else 3)
+    full, _, _ = M.forward_train(model, cfg, {"tokens": tok})
+    cache = M.init_cache(cfg, tok.shape[0], LM_S_MAX, torch.float32, dev)
+    logits, cache = M.prefill(model, cfg, {"tokens": tok[:, :S]}, cache)
+    steps = [logits]
+    for j in range(tok.shape[1] - S):
+        logits, cache = M.decode_step(model, cfg, tok[:, S + j:S + j + 1], cache, S + j)
+        steps.append(logits)
+    part = torch.cat(steps, dim=1)
+    ref = full[:, S - 1:]
+    return dict(config=cfg.name, layers=cfg.num_layers, prompt=S, decodes=tok.shape[1] - S,
+                max_abs_err=float((part - ref).abs().max()), max_abs_logit=float(ref.abs().max()),
+                worst_over_allowed=worst(ref, part))
+
+
+def mla_consistency(torch, A, cfg, mixer, S: int, seed: int, dev) -> dict:
+    """12f: layer 0's MLA (f32, full width) — mla_prefill over S then the
+    absorbed mla_decode of token S against mla_train over S + 1."""
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn((2, S + 1, cfg.d_model), generator=g, device=dev)
+    pos = torch.arange(S + 1, device=dev).expand(2, S + 1)
+    full = A.mla_train(mixer, cfg, x, pos)
+    m = cfg.mla
+    cache = A.KVCache(k=torch.zeros((2, LM_S_MAX, m.kv_lora_rank + m.qk_rope_head_dim), device=dev),
+                      v=torch.zeros((2, 0), device=dev))
+    pre, cache = A.mla_prefill(mixer, cfg, x[:, :S], pos[:, :S], cache)
+    step, _ = A.mla_decode(mixer, cfg, x[:, S:], cache, S)
+    part = torch.cat([pre, step], dim=1)
+    return dict(config=cfg.name, layer=0, prompt=S, max_abs_err=float((part - full).abs().max()),
+                max_abs_out=float(full.abs().max()), worst_over_allowed=worst(full, part))
+
+
+def moe_ssm_phase(torch, np, K, dev, seed: int, prof_dir: Path | None) -> dict:
+    """Phase 12. (a)-(d) the four MoE / MLA / SSM architectures served by
+    ServeEngine on the card, one at a time; (e) card against CPU and (f)
+    consistency at cut depths; (g) no port kernel launches."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    rng = np.random.RandomState(seed)
+    out: dict = {"served": {}, "card_vs_cpu": [], "consistency": [], "profile": {}}
+
+    # -- 12a-d: each architecture served, then freed ---------------------
+    for arch, layers, plen in MOE_SSM_SERVED:
+        published = get_config(arch)
+        cfg = published if layers is None else cut_depth(published, layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        model = M.init_params(torch.Generator(dev).manual_seed(seed), cfg, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        warm = ServeEngine(cfg, model, batch_slots=1, s_max=LM_S_MAX)  # cuBLAS, allocator
+        warm.submit(0, rng.randint(0, cfg.vocab_size, plen), max_new_tokens=2)
+        warm.run()
+        del warm
+        prompts = [rng.randint(0, cfg.vocab_size, plen) for _ in range(MOE_SSM_REQUESTS)]
+        served = lm_serve(torch, np, M, ServeEngine(cfg, model, LM_SLOTS, LM_S_MAX), prompts,
+                          MOE_SSM_NEW, moe if cfg.moe else None)
+        reduced = [f"{MOE_SSM_REQUESTS} requests of {plen} x {MOE_SSM_NEW} new tokens"]
+        if layers is not None:
+            reduced.append(f"layers {published.num_layers} -> {layers} (the published depth "
+                           f"is {published.param_count() * 2 / 1e9:.0f} GB in bf16)")
+        rec = dict(config=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+                   vocab=cfg.vocab_size, dtype=cfg.param_dtype, params=cfg.param_count(),
+                   param_bytes=param_bytes(model), init_s=init_s, slots=LM_SLOTS,
+                   s_max=LM_S_MAX, prompt_len=plen, reduced=reduced, **served,
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        if prof_dir is not None:
+            cache = M.init_cache(cfg, LM_SLOTS, LM_S_MAX, torch.float32, dev)
+            tok = torch.zeros((LM_SLOTS, 1), dtype=torch.long, device=dev)
+            out["profile"].update(profile_runs(torch, {f"lm_decode_{arch}": [
+                lambda: M.decode_step(model, cfg, tok, cache, plen)] * 2}, prof_dir))
+            del cache
+        out["served"][arch] = rec
+        print(f"lm12 {arch}: " + json.dumps(rec), flush=True)
+        lm_summary(rec)
+        if cfg.moe:
+            print(f"lm12 {arch}: routed-experts bound p50 {rec['routed_bound_ms']:.4f} ms "
+                  f"against every expert {rec['decode_bound_ms']:.4f} ms; dropped routes per "
+                  f"prefill {rec['prefill_dropped_routes']} of {rec['prefill_routes']}",
+                  flush=True)
+        del model
+        torch.cuda.empty_cache()
+
+    # -- 12e-f: published widths at cut depths, card against CPU; f32 ------
+    for arch, depth in MOE_SSM_CUT:
+        cfg = get_smoke_config(arch) if depth == 0 else cut_depth(get_config(arch), depth)
+        cfg16 = dataclasses.replace(cfg, param_dtype="bfloat16", compute_dtype="bfloat16")
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+        model = M.init_params(torch.Generator(dev).manual_seed(seed), cfg16, dev)
+        tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, CUT_PROMPT)).astype(np.int64))
+        routes = moe if cfg.moe else None
+        out["card_vs_cpu"].append(card_vs_cpu(torch, M, cfg16, model, tokens, "bfloat16", dev,
+                                              CUT_DECODES, routes))
+        model = model.float()  # the same weights in f32, converted in place
+        out["card_vs_cpu"].append(card_vs_cpu(torch, M, cfg32, model, tokens, "float32", dev,
+                                              CUT_DECODES, routes))
+        tok = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, CONSIST_PROMPT + (
+            0 if cfg.moe else 3))).astype(np.int64)).to(dev)
+        c = moe_ssm_consistency(torch, M, cfg32, model, tok, dev)
+        out["consistency"].append(c)
+        print("lm12 consistency: " + json.dumps(c), flush=True)
+        if cfg.mla:
+            c = mla_consistency(torch, A, cfg32, model.blocks[0]["mixer"], CONSIST_PROMPT,
+                                seed, dev)
+            out["consistency"].append(c)
+            print("lm12 consistency (absorbed MLA decode): " + json.dumps(c), flush=True)
+        del model
+        torch.cuda.empty_cache()
+    counts = K.launch_counts()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 12: {out['seconds']:.1f} s (budget {MOE_SSM_BUDGET_S:.0f} s)", flush=True)
+    for c in out["consistency"]:
+        check(c["worst_over_allowed"] <= 1.0, f"{c['config']}: consistency past rtol = atol = "
+              f"{MOE_SSM_F32_TOL}: {json.dumps(c)}")
+    check(not any(counts.values()), f"phase 12 launched port kernels: {counts}")
+    check(out["seconds"] <= MOE_SSM_BUDGET_S,
+          f"phase 12 took {out['seconds']:.1f} s > {MOE_SSM_BUDGET_S} s")
+    return out
+
+
 def rec_at(np, responses, truth, k: int) -> float:
     from repro_torch.core import recall as rec
 
@@ -2937,13 +3216,17 @@ def run(args) -> int:
             for f in entry["forms"]:
                 if f.get("path") == "launcher":
                     f["launches_at_rows"] = lm["launcher"]["encode_by_rows"].get(f["rows"], 0)
+    # 12. the MoE, MLA and SSM LM stacks (no port kernel: asserted there)
+    lm_moe_ssm = moe_ssm_phase(torch, np, K, dev, args.seed,
+                               Path(args.out).parent if args.profile else None)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(kernels=line["kernels"], main_path=path,
                                                   card_vs_cpu=versus, wide_cuts=wide,
                                                   wide_turns=wide_turns, profile=prof,
                                                   updates=updates, collection=collection,
-                                                  serve=serve, lm=lm, card=card,
+                                                  serve=serve, lm=lm,
+                                                  lm_moe_ssm=lm_moe_ssm, card=card,
                                                   launch_floor_ms=floor_ms),
                                              indent=1))
     print(json.dumps(line))

@@ -1,5 +1,5 @@
-"""repro_torch.models — the architecture pool as PyTorch models (dense and
-VLM GQA transformers; MoE, MLA and SSM blocks are not ported yet)."""
+"""repro_torch.models — the architecture pool as PyTorch models: dense, VLM,
+MoE (with MLA), hybrid Mamba2 and RWKV6 stacks, and the audio encoder."""
 from .config import MLAConfig, ModelConfig, MoEConfig, SSMConfig
 from . import model
 

@@ -16,25 +16,29 @@ copy) and returns it, so a caller keeps using the returned cache as it
 would the reference's. The sequence-sharded caches and context-parallel
 constraints of the reference need a mesh and have no counterpart here.
 
-MLA (DeepSeek-V2) is not ported yet: its functions raise.
+MLA (DeepSeek-V2) has the same three entry points. Prefill and train run
+the naive form (k_nope and v expanded per head); decode runs the *absorbed*
+form, attending in the compressed kv_lora space against a cache of
+(c_kv ‖ k_rope) per position. The two round differently, as the
+reference's do; each is held against its own counterpart.
 """
 from __future__ import annotations
 
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from .config import ModelConfig
+from .config import MLAConfig, ModelConfig
 from .layers import apply_rope, dense_init, rmsnorm, rmsnorm_init
 
 NEG_INF = -1e30
-MLA_TODO = "MLA attention is not ported yet (ROADMAP §1 item 14: MoE and MLA)"
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # (B, S_max, H_kv, Dh)
-    v: torch.Tensor  # (B, S_max, H_kv, Dh)
+    k: torch.Tensor  # (B, S_max, H_kv, Dh)   [MLA: (B, S_max, kv_lora + rope)]
+    v: torch.Tensor  # (B, S_max, H_kv, Dh)   [MLA: the zero-width (B, 0)]
 
 
 # ---------------------------------------------------------------------------
@@ -143,21 +147,113 @@ def gqa_decode(params, cfg: ModelConfig, x, cache: KVCache, cache_len: int):
 
 
 # ---------------------------------------------------------------------------
-# MLA (DeepSeek-V2): not ported yet
+# MLA (DeepSeek-V2)
 # ---------------------------------------------------------------------------
 
 
-def mla_init(gen, cfg: ModelConfig, dtype):
-    raise NotImplementedError(MLA_TODO)
+def mla_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    m: MLAConfig = cfg.mla
+    dm, H = cfg.d_model, cfg.num_heads
+    return {
+        "wq": dense_init(gen, (dm, H * (m.qk_nope_head_dim + m.qk_rope_head_dim)), dtype),
+        "wdkv": dense_init(gen, (dm, m.kv_lora_rank), dtype),
+        "wkr": dense_init(gen, (dm, m.qk_rope_head_dim), dtype),
+        "kv_norm": rmsnorm_init(m.kv_lora_rank, dtype, gen.device),
+        "wuk": dense_init(gen, (m.kv_lora_rank, H * m.qk_nope_head_dim), dtype),
+        "wuv": dense_init(gen, (m.kv_lora_rank, H * m.v_head_dim), dtype),
+        "wo": dense_init(gen, (H * m.v_head_dim, dm), dtype),
+    }
 
 
-def mla_train(params, cfg: ModelConfig, x, positions):
-    raise NotImplementedError(MLA_TODO)
+def _mla_scale(m: MLAConfig) -> float:
+    """1 / sqrt(dn + dr), each step rounded to f32 as the reference's is."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(m.qk_nope_head_dim + m.qk_rope_head_dim)))
 
 
-def mla_prefill(params, cfg: ModelConfig, x, positions, cache):
-    raise NotImplementedError(MLA_TODO)
+def _mla_q(params, cfg: ModelConfig, x, positions):
+    m = cfg.mla
+    B, S, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta, "full")
 
 
-def mla_decode(params, cfg: ModelConfig, x, cache, cache_len):
-    raise NotImplementedError(MLA_TODO)
+def _mla_kv(params, cfg: ModelConfig, x, positions):
+    """(c_kv (B,S,r), k_rope (B,S,1,dr)): the compressed stream and the
+    rotary key shared across heads."""
+    c_kv = rmsnorm(params["kv_norm"], x @ params["wdkv"], cfg.norm_eps)
+    k_rope = apply_rope((x @ params["wkr"])[:, :, None, :], positions, cfg.rope_theta, "full")
+    return c_kv, k_rope
+
+
+def _mla_attend(q_nope, q_rope, k_nope, k_rope, v, m: MLAConfig, q_offset: int, dtype):
+    """One query block of MLA attention: (B,Sq,H,·) against every key."""
+    Sq, Sk = q_nope.shape[1], k_nope.shape[1]
+    scores = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
+              + torch.einsum("bqhd,bkxd->bhqk", q_rope, k_rope)).float() * _mla_scale(m)
+    qpos = q_offset + torch.arange(Sq, device=q_nope.device)
+    mask = qpos[:, None] >= torch.arange(Sk, device=q_nope.device)[None, :]
+    w = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def mla_train(params, cfg: ModelConfig, x, positions) -> torch.Tensor:
+    """The naive form: k_nope and v expanded per head from c_kv; queries
+    in blocks of ``attn_q_chunk`` where it divides S (a Python loop where
+    the reference scans, or unrolls under ``force_unroll``: the same
+    blocks either way)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    c_kv, k_rope = _mla_kv(params, cfg, x, positions)
+    k_nope = (c_kv @ params["wuk"]).reshape(B, S, H, m.qk_nope_head_dim)
+    v = (c_kv @ params["wuv"]).reshape(B, S, H, m.v_head_dim)
+
+    qc = cfg.attn_q_chunk
+    if not qc or S <= qc or S % qc != 0:
+        out = _mla_attend(q_nope, q_rope, k_nope, k_rope, v, m, 0, x.dtype)
+    else:
+        out = torch.cat([_mla_attend(q_nope[:, o:o + qc], q_rope[:, o:o + qc], k_nope, k_rope,
+                                     v, m, o, x.dtype) for o in range(0, S, qc)], dim=1)
+    return out.reshape(B, S, H * m.v_head_dim) @ params["wo"]
+
+
+def mla_prefill(params, cfg: ModelConfig, x, positions, cache: KVCache):
+    """Writes the compressed (c_kv ‖ k_rope) stream into cache.k[:, :S]
+    (cache.k (B, S_max, r + dr), cache.v the zero-width (B, 0)) and
+    attends in the naive form."""
+    c_kv, k_rope = _mla_kv(params, cfg, x, positions)
+    S = x.shape[1]
+    cache.k[:, :S] = torch.cat([c_kv, k_rope[:, :, 0, :]], dim=-1).to(cache.k.dtype)
+    return mla_train(params, cfg, x, positions), cache
+
+
+def mla_decode(params, cfg: ModelConfig, x, cache: KVCache, cache_len: int):
+    """The absorbed form: W_UK folds into the query and W_UV into the
+    output, so the step attends in kv_lora space against the packed cache.
+    The new entry goes to cache_len clamped into [0, S_max - 1], as in
+    ``gqa_decode``; RoPE and the mask use cache_len unclamped."""
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.num_heads
+    r = m.kv_lora_rank
+    S_max = cache.k.shape[1]
+    pos = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(params, cfg, x, pos)  # (B,1,H,dn), (B,1,H,dr)
+    c_new, r_new = _mla_kv(params, cfg, x, pos)
+    at = min(max(cache_len, 0), S_max - 1)
+    cache.k[:, at:at + 1] = torch.cat([c_new, r_new[:, :, 0, :]], dim=-1).to(cache.k.dtype)
+    c_all = cache.k[..., :r].to(x.dtype)  # (B,S,r)
+    r_all = cache.k[..., r:].to(x.dtype)  # (B,S,dr)
+
+    wuk = params["wuk"].reshape(r, H, m.qk_nope_head_dim)
+    q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope, wuk)  # (B,1,H,r)
+    scores = (torch.einsum("bqhr,bkr->bhqk", q_abs, c_all)
+              + torch.einsum("bqhd,bkd->bhqk", q_rope, r_all)).float() * _mla_scale(m)
+    valid = torch.arange(S_max, device=x.device) <= cache_len
+    w = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhqk,bkr->bqhr", w, c_all)  # (B,1,H,r)
+    wuv = params["wuv"].reshape(r, H, m.v_head_dim)
+    out = torch.einsum("bqhr,rhd->bqhd", ctx, wuv).reshape(B, 1, H * m.v_head_dim)
+    return out @ params["wo"], cache

@@ -9,22 +9,26 @@ them. The reference's function names (``block_train``, ``prefill``,
 ``decode_step``, ...) are thin functions over these modules, with the
 reference's signatures.
 
-Covered: dense and VLM GQA transformers and the encoder-only audio stack
-(``forward_train``). MoE, MLA and the SSM blocks raise
-``NotImplementedError`` naming their ROADMAP item. Training (``loss_fn``,
-remat) belongs to a later slice; ``forward_train`` is forward only.
+Covered: every block of the pool — GQA and MLA attention, the MLP and
+MoE FFNs, Mamba2 and RWKV6 mixers — in the dense, VLM, MoE, hybrid and SSM
+stacks, and the encoder-only audio stack (``forward_train``). Training
+(``loss_fn``, remat) belongs to a later slice; ``forward_train`` is
+forward only (with the MoE aux summed over layers).
 ``constrain_batch_dim`` shards over a mesh and is a no-op without one, so
 it is dropped. As in the reference, token ids must lie in [0, vocab):
 JAX clamps an out-of-range id where torch raises; the engine only feeds
 ids the model emitted or the caller gave in range.
 
-Caches are the reference's structure: one ``KVCache`` per ``segments``
-run, leaves (seg_len, B, S_max, H_kv, Dh). Prefill and decode write them in
-place and return them.
+Caches are the reference's structure: one entry per ``segments`` run, a
+``KVCache`` with leaves (seg_len, B, S_max, H_kv, Dh) (MLA: k (seg_len, B,
+S_max, r + dr), v (seg_len, B, 0)) or a dict of stacked SSM states
+(Mamba2 ``{"S", "conv"}``, RWKV6 ``{"S", "shift"}``). Prefill and decode
+write them in place, each leaf in the dtype ``init_cache`` gave it (``S``
+always f32), and return them.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -32,27 +36,18 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from . import attention as attn
+from . import ssm as ssmmod
 from .attention import KVCache
 from .config import ModelConfig
 from .layers import (dtype_of, embed_init, mlp_apply, mlp_init, param_dict, rmsnorm,
                      rmsnorm_init)
+from .moe import moe_apply, moe_init
 
-MOE_TODO = "MoE blocks are not ported yet (ROADMAP §1 item 14: MoE and MLA)"
-SSM_TODO = "{} blocks are not ported yet (ROADMAP §1 item 15: SSM blocks)"
+Cache = Union[KVCache, dict]  # a segment's decode state: KV stacks or SSM states
 
 
 def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
     return kind == "attn" or cfg.family == "ssm"
-
-
-def _unported(cfg: ModelConfig, kind: str) -> None:
-    """Raise for a block this port does not run yet."""
-    if kind != "attn":
-        raise NotImplementedError(SSM_TODO.format(kind))
-    if cfg.mla:
-        raise NotImplementedError(attn.MLA_TODO)
-    if cfg.moe:
-        raise NotImplementedError(MOE_TODO)
 
 
 class Block(nn.ModuleDict):
@@ -84,40 +79,80 @@ class Model(nn.Module):
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Block:
-    _unported(cfg, kind)
     dt = dtype_of(cfg.param_dtype)
-    p = {"norm1": rmsnorm_init(cfg.d_model, dt, gen.device),
-         "mixer": attn.gqa_init(gen, cfg, dt)}
+    p = {"norm1": rmsnorm_init(cfg.d_model, dt, gen.device)}
+    if kind == "attn":
+        p["mixer"] = attn.mla_init(gen, cfg, dt) if cfg.mla else attn.gqa_init(gen, cfg, dt)
+    elif kind == "mamba2":
+        p["mixer"] = ssmmod.mamba2_init(gen, cfg, dt)
+    elif kind == "rwkv6":
+        p["mixer"] = ssmmod.rwkv6_init(gen, cfg, dt)
+    else:
+        raise ValueError(kind)
     if _has_ffn(cfg, kind):
         p["norm2"] = rmsnorm_init(cfg.d_model, dt, gen.device)
-        p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dt)
+        p["ffn"] = (moe_init(gen, cfg, dt) if cfg.moe
+                    else mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dt))
     return Block(kind, p)
+
+
+def _ffn(p: Block, cfg: ModelConfig, kind: str, x):
+    """The residual FFN where the kind has one: returns (x, the MoE aux loss
+    or None)."""
+    if not _has_ffn(cfg, kind):
+        return x, None
+    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if cfg.moe:
+        y, aux = moe_apply(p["ffn"], cfg, h)
+        return x + y, aux
+    return x + mlp_apply(p["ffn"], h, cfg.mlp), None
+
+
+def _store(cache: dict, state: dict) -> dict:
+    """Write an SSM state into the layer's cache view in place (in the
+    cache's dtype)."""
+    for k, v in state.items():
+        cache[k].copy_(v)
+    return cache
 
 
 def block_train(p: Block, cfg: ModelConfig, kind: str, x, positions):
     """Returns (x, aux); aux is 0 without MoE."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + attn.gqa_train(p["mixer"], cfg, h, positions)
-    if _has_ffn(cfg, kind):
-        x = x + mlp_apply(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps), cfg.mlp)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "attn":
+        fn = attn.mla_train if cfg.mla else attn.gqa_train
+        mix = fn(p["mixer"], cfg, h, positions)
+    elif kind == "mamba2":
+        mix = ssmmod.mamba2_forward(p["mixer"], cfg, h)
+    else:
+        mix = ssmmod.rwkv6_forward(p["mixer"], cfg, h)
+    x, aux = _ffn(p, cfg, kind, x + mix)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device) if aux is None else aux
 
 
-def block_prefill(p: Block, cfg: ModelConfig, kind: str, x, positions, cache: KVCache):
+def block_prefill(p: Block, cfg: ModelConfig, kind: str, x, positions, cache: Cache):
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    mix, cache = attn.gqa_prefill(p["mixer"], cfg, h, positions, cache)
-    x = x + mix
-    if _has_ffn(cfg, kind):
-        x = x + mlp_apply(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps), cfg.mlp)
+    if kind == "attn":
+        fn = attn.mla_prefill if cfg.mla else attn.gqa_prefill
+        mix, cache = fn(p["mixer"], cfg, h, positions, cache)
+    else:
+        fwd = ssmmod.mamba2_forward if kind == "mamba2" else ssmmod.rwkv6_forward
+        mix, state = fwd(p["mixer"], cfg, h, return_state=True)
+        cache = _store(cache, state)
+    x, _ = _ffn(p, cfg, kind, x + mix)
     return x, cache
 
 
-def block_decode(p: Block, cfg: ModelConfig, kind: str, x, cache: KVCache, cache_len: int):
+def block_decode(p: Block, cfg: ModelConfig, kind: str, x, cache: Cache, cache_len: int):
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    mix, cache = attn.gqa_decode(p["mixer"], cfg, h, cache, cache_len)
-    x = x + mix
-    if _has_ffn(cfg, kind):
-        x = x + mlp_apply(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps), cfg.mlp)
+    if kind == "attn":
+        fn = attn.mla_decode if cfg.mla else attn.gqa_decode
+        mix, cache = fn(p["mixer"], cfg, h, cache, cache_len)
+    else:
+        step = ssmmod.mamba2_step if kind == "mamba2" else ssmmod.rwkv6_step
+        mix, state = step(p["mixer"], cfg, h, cache)
+        cache = _store(cache, state)
+    x, _ = _ffn(p, cfg, kind, x + mix)
     return x, cache
 
 
@@ -172,7 +207,6 @@ def params_from_reference(ref_params: dict, cfg: ModelConfig, device: DeviceLike
 
     blocks = []
     for (kind, ln), seg in zip(segments(cfg), ref_params["blocks"]):
-        _unported(cfg, kind)
         blocks += [Block(kind, layer(seg, j)) for j in range(ln)]
     embed, lm_head = (_from_numpy(ref_params[k], dev) if k in ref_params else None
                       for k in ("embed", "lm_head"))
@@ -237,30 +271,55 @@ def forward_train(model: Model, cfg: ModelConfig, batch: dict):
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16,
-               device: DeviceLike = None) -> list[KVCache]:
-    """Decode state: one ``KVCache`` per ``segments(cfg)`` run, leaves
-    (seg_len, B, S_max, H_kv, Dh) of zeros."""
+               device: DeviceLike = None) -> list[Cache]:
+    """Decode state: one entry per ``segments(cfg)`` run, leaves (seg_len,
+    B, ...) of zeros: a ``KVCache`` for attention (GQA (B, S_max, H_kv, Dh)
+    k and v; MLA the packed (B, S_max, r + dr) k and a zero-width v), the
+    Mamba2 or RWKV6 state dict for SSM blocks."""
     dev = resolve_device(device)
+
+    def one(kind: str) -> Cache:
+        if kind == "attn":
+            if cfg.mla:
+                m = cfg.mla
+                return KVCache(
+                    k=torch.zeros((batch, s_max, m.kv_lora_rank + m.qk_rope_head_dim),
+                                  dtype=dtype, device=dev),
+                    v=torch.zeros((batch, 0), dtype=dtype, device=dev))
+            shape = (batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
+            return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                           v=torch.zeros(shape, dtype=dtype, device=dev))
+        init = ssmmod.mamba2_init_state if kind == "mamba2" else ssmmod.rwkv6_init_state
+        return init(cfg, batch, dtype, dev)
+
     out = []
-    for kind, ln in segments(cfg):
-        _unported(cfg, kind)
-        shape = (ln, batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
-        out.append(KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
-                           v=torch.zeros(shape, dtype=dtype, device=dev)))
+    for kind, ln in segments(cfg):  # each layer's zeros stacked on a leading seg axis
+        c = one(kind)
+        out.append({k: v.new_zeros((ln,) + v.shape) for k, v in c.items()} if isinstance(c, dict)
+                   else KVCache(*(v.new_zeros((ln,) + v.shape) for v in c)))
     return out
 
 
-def _layer_caches(cfg: ModelConfig, cache: list[KVCache]):
+def cache_leaves(seg: Cache) -> list[torch.Tensor]:
+    """A segment's leaves in the reference's pytree order."""
+    return list(seg.values()) if isinstance(seg, dict) else list(seg)
+
+
+def _layer_caches(cfg: ModelConfig, cache: list[Cache]):
     """(layer's cache) per layer in order: views into the segments' stacks."""
     for (_, ln), seg in zip(segments(cfg), cache):
         for j in range(ln):
-            yield KVCache(k=seg.k[j], v=seg.v[j])
+            if isinstance(seg, dict):
+                yield {k: v[j] for k, v in seg.items()}
+            else:
+                yield KVCache(k=seg.k[j], v=seg.v[j])
 
 
 @torch.no_grad()
-def prefill(model: Model, cfg: ModelConfig, batch: dict, cache: list[KVCache]):
+def prefill(model: Model, cfg: ModelConfig, batch: dict, cache: list[Cache]):
     """Process the prompt; returns (last-position logits (B,1,V) f32, the
-    cache with the prompt's keys and values written)."""
+    cache with the prompt's keys and values, or its SSM states, written).
+    An SSM prompt must be a multiple of its chunk (or shorter than one)."""
     x, pos, _ = _embed_inputs(model, cfg, batch)
     for blk, c in zip(model.blocks, _layer_caches(cfg, cache)):
         x, _ = block_prefill(blk, cfg, blk.kind, x, pos, c)
@@ -269,10 +328,11 @@ def prefill(model: Model, cfg: ModelConfig, batch: dict, cache: list[KVCache]):
 
 
 @torch.no_grad()
-def decode_step(model: Model, cfg: ModelConfig, tokens, cache: list[KVCache], cache_len: int):
+def decode_step(model: Model, cfg: ModelConfig, tokens, cache: list[Cache], cache_len: int):
     """One decode step at position ``cache_len`` (one int for every row).
     tokens (B, 1) int (or (B, 1, dm) frames); returns (logits (B,1,V) f32,
-    the cache with the new keys and values written)."""
+    the cache with the new keys and values, or the advanced states,
+    written)."""
     cd = dtype_of(cfg.compute_dtype)
     if cfg.input_mode in ("tokens", "vlm"):
         x = model.embed[tokens].to(cd)  # (B,1,dm)
@@ -284,18 +344,21 @@ def decode_step(model: Model, cfg: ModelConfig, tokens, cache: list[KVCache], ca
     return _logits(model, cfg, x), cache
 
 
-def cache_from_reference(ref_cache, device: DeviceLike = None) -> list[KVCache]:
-    """The reference's cache (a list of per-segment ``KVCache``s, leaves as
-    numpy arrays) as the port's."""
+def cache_from_reference(ref_cache, device: DeviceLike = None) -> list[Cache]:
+    """The reference's cache (a list of per-segment ``KVCache``s or state
+    dicts, leaves as numpy arrays) as the port's."""
     dev = resolve_device(device)
-    return [KVCache(k=_from_numpy(c[0], dev), v=_from_numpy(c[1], dev)) for c in ref_cache]
+    return [{k: _from_numpy(v, dev) for k, v in c.items()} if isinstance(c, dict)
+            else KVCache(k=_from_numpy(c[0], dev), v=_from_numpy(c[1], dev)) for c in ref_cache]
 
 
-def cache_to_reference(cache: list[KVCache]) -> list[tuple[np.ndarray, np.ndarray]]:
-    """The port's cache as numpy (k, v) per segment, leaf for leaf the
-    reference's layout (bf16 leaves as float32 values)."""
+def cache_to_reference(cache: list[Cache]) -> list:
+    """The port's cache as numpy, leaf for leaf the reference's layout: a
+    (k, v) tuple per attention segment, a dict per SSM segment (bf16 leaves
+    as float32 values)."""
     def np_(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    return [(np_(c.k), np_(c.v)) for c in cache]
+    return [{k: np_(v) for k, v in c.items()} if isinstance(c, dict)
+            else (np_(c.k), np_(c.v)) for c in cache]

@@ -10,7 +10,9 @@ The reference's quirks are kept bit for bit: the caches are f32 whatever
 ``param_dtype`` says; each admitted prompt is prefilled alone into a fresh
 one-slot cache and copied into its slot; and a step runs one batched
 decode at the *first active slot's* ``cache_len`` for every slot, so slots
-admitted at different times share one write position and one mask.
+admitted at different times share one write position and one mask. The
+SSM states of every slot, empty ones included, advance at each step, and
+an SSM prompt longer than its chunk must be a multiple of it.
 """
 from __future__ import annotations
 
@@ -75,9 +77,10 @@ class ServeEngine:
                 req.out_tokens.append(int(torch.argmax(logits[0, 0])))
 
     def _write_slot_cache(self, i: int, cache_i):
-        # caches are lists of per-segment stacks with leaves (seg, B, ...)
+        # caches are lists of per-segment stacks (KV caches or SSM state
+        # dicts) with leaves (seg, B, ...)
         for full, one in zip(self.cache, cache_i):
-            for f, o in zip(full, one):
+            for f, o in zip(M.cache_leaves(full), M.cache_leaves(one)):
                 f[:, i:i + 1] = o.to(f.dtype)
 
     # ------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""The port's architecture configs, layers and dense LM stack
-(``repro_torch.configs``, ``repro_torch.models``) against the JAX
-reference's, on the CPU.
+"""The port's architecture configs, layers and LM stacks (dense, VLM, MoE,
+MLA, hybrid Mamba2 and RWKV6; ``repro_torch.configs``,
+``repro_torch.models``) against the JAX reference's, on the CPU.
 
 The same inputs, made from a seed with numpy, go through both packages.
 Tolerances: f32 results within 1e-5 absolute at the layers (5e-6 relative
@@ -30,7 +30,11 @@ F32_LAYER_ATOL = 1e-5
 LOGIT_ATOL = 1e-4
 BF16_REL = 1 / 64
 DENSE = ["smollm-135m", "qwen3-14b", "chatglm3-6b", "starcoder2-15b", "paligemma-3b"]
-UNPORTED = ["qwen3-moe-235b-a22b", "deepseek-v2-lite-16b", "zamba2-1.2b", "rwkv6-7b"]
+# MoE (GQA and MLA), hybrid Mamba2 and RWKV6: S=16 is a multiple of each
+# smoke config's SSM chunk, as a prefill needs
+MOE_SSM = ["qwen3-moe-235b-a22b", "deepseek-v2-lite-16b", "zamba2-1.2b", "rwkv6-7b"]
+DECODING = DENSE + MOE_SSM
+AUX_ATOL = 1e-6
 
 
 def _np(x) -> np.ndarray:
@@ -195,11 +199,18 @@ def _carried(cfg, seed=1):
     return ref, TM.params_from_reference(jax.tree.map(np.asarray, ref), cfg, "cpu")
 
 
+def _leaves(seg):
+    """A segment's leaves in order: a KV (k, v) pair or an SSM state dict."""
+    return [seg[k] for k in sorted(seg)] if isinstance(seg, dict) else list(seg)
+
+
 def _caches_close(ref_cache, port_cache, atol=LOGIT_ATOL):
     port = TM.cache_to_reference(port_cache)
     assert len(port) == len(ref_cache)
     for r, p in zip(ref_cache, port):
-        for a, b in zip(r, p):
+        assert isinstance(p, dict) == isinstance(r, dict)
+        assert not isinstance(p, dict) or sorted(p) == sorted(r)
+        for a, b in zip(_leaves(r), _leaves(p)):
             assert b.shape == a.shape
             np.testing.assert_allclose(b, _np(a), rtol=0, atol=atol)
 
@@ -209,10 +220,12 @@ def _serve_parity(cfg, B=2, S=16, s_max=32, decodes=2, atol=LOGIT_ATOL):
     from the reference), logits and caches compared after each call."""
     ref, port = _carried(cfg)
     b = _batch(cfg, np.random.RandomState(0), B, S)
-    logits, _, _ = RM.forward_train(ref, cfg, _jax_batch(b), remat="none")
+    logits, _, r_aux = RM.forward_train(ref, cfg, _jax_batch(b), remat="none")
     t_logits, _, aux = TM.forward_train(port, cfg, _torch_batch(b))
     np.testing.assert_allclose(_np(t_logits), _np(logits), rtol=0, atol=atol)
-    assert float(aux) == 0.0
+    assert aux.dtype == torch.float32
+    np.testing.assert_allclose(float(aux), float(r_aux), rtol=0, atol=AUX_ATOL)
+    assert (float(aux) == 0.0) == (cfg.moe is None)
     rc = RM.init_cache(cfg, B, s_max, dtype=jnp.float32)
     tc = TM.init_cache(cfg, B, s_max, torch.float32, "cpu")
     rl_, rc = RM.prefill(ref, cfg, _jax_batch(b), rc)
@@ -232,8 +245,10 @@ def _serve_parity(cfg, B=2, S=16, s_max=32, decodes=2, atol=LOGIT_ATOL):
         _caches_close(rc, tc, atol)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DECODING)
 def test_forward_prefill_decode_match_reference(arch):
+    """Forward, prefill and two decodes; caches (KV, MLA's packed stream,
+    SSM states) carried both ways; the MoE aux within AUX_ATOL."""
     _serve_parity(rcfgs.get_smoke_config(arch))
 
 
@@ -286,15 +301,11 @@ def test_decode_past_the_cache_clamps_its_write_like_the_reference():
     _caches_close(rc, tc)
 
 
-@pytest.mark.parametrize("arch", UNPORTED + ["hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["hubert-xlarge"])
 def test_unported_blocks_raise_and_the_encoder_runs(arch):
+    """The encoder-only stack's forward (no block raises any more: the MoE,
+    MLA and SSM cases are in test_forward_prefill_decode_match_reference)."""
     cfg = tcfgs.get_smoke_config(arch)
-    if arch in UNPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.init_params(torch.Generator("cpu").manual_seed(0), cfg, "cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.init_cache(cfg, 1, 8, torch.float32, "cpu")
-        return
     ref, port = _carried(cfg)  # frames in, encoder-only: no cache, no decode
     b = _batch(cfg, np.random.RandomState(5))
     logits, mask, _ = RM.forward_train(ref, cfg, _jax_batch(b), remat="none")
@@ -303,7 +314,7 @@ def test_unported_blocks_raise_and_the_encoder_runs(arch):
     np.testing.assert_array_equal(t_mask.numpy(), np.asarray(mask))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DECODING)
 def test_init_params_has_the_reference_layout(arch):
     """Seeded init on the CPU: every leaf of the reference's pytree, layer by
     layer, with its shape and dtype; the same seed gives the same weights."""
