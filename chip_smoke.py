@@ -175,6 +175,30 @@ Phases, each printed on its own lines; any failure exits non-zero:
     ``mla_prefill`` against ``mla_train`` over S + 1 on layer 0's
     full-width weights. (g) No port kernel launches (asserted); phase 12
     must take at most MOE_SSM_BUDGET_S.
+13. training, after phase 12: (a) smollm-135m at full width (bf16 weights,
+    f32 AdamW moments) through the launcher ``repro_torch.launch.train
+    .train`` (TRAIN_SMOL: global batch 8 x seq 1024, remat "full", lr
+    2e-3): an unbroken run of 20 steps, then a run killed at step 10 (its
+    checkpoint in the git-ignored ``build/train_phase/``) and resumed to 20;
+    the loss must descend by TRAIN_DESCENT and the resumed run's last 5
+    losses equal the unbroken run's within TRAIN_RESUME_TOL (should they
+    not, both runs again under ``torch.use_deterministic_algorithms``,
+    recording the ops it warns of); step ms (p50 / p95, host clock, card
+    synced), tokens/s, peak allocated memory, the step's bound
+    (``train_bound``); with ``--profile`` the launches and busy share of
+    one step. (b) Each of the ten smoke configs (f32): its loss's
+    gradients and one ``make_train_step`` step on the card and on a CPU
+    copy of the same weights and batch: loss within TRAIN_LOSS_REL,
+    grad_norm within TRAIN_NORM_REL, gradients and updated parameters
+    within TRAIN_PARAM_REL of each leaf's max-abs (the elements whose CPU
+    gradient lies within that of zero, which Adam's normalisation may move
+    by up to its step either way, within 2 lr), every MoE route equal.
+    (c) hubert-xlarge and zamba2-1.2b at full width, deepseek-v2-lite-16b
+    and rwkv6-7b at their widths cut to 4 and 8 layers (TRAIN_FULL),
+    TRAIN_FULL_STEPS steps each at global batch 4 x seq 512: finite loss,
+    gradient norm and parameters, peak within TRAIN_PEAK_BYTES, step ms,
+    tokens/s, the bound. No port kernel launches (asserted); phase 13 must
+    take at most TRAIN_BUDGET_S.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -339,6 +363,32 @@ CUT_PROMPT, CUT_DECODES = 64, 3  # (e): 2 prompts of 64 tokens, 3 teacher-forced
 # (f): prompt S (SSM: two chunks of rwkv6, one of zamba2, so forward_train
 # over S + 3 pads), then 3 decodes; f32 on the card, rtol = atol = this
 CONSIST_PROMPT, MOE_SSM_F32_TOL = 128, 1e-3
+
+# phase 13: training
+TRAIN_BUDGET_S = 150.0  # phase 13 must fit in this
+# 13a: smollm-135m at full width through launch.train.train, bf16 weights,
+# f32 moments: an unbroken run, then one killed at TRAIN_KILL_AT (a
+# checkpoint) and resumed; the loss must descend by TRAIN_DESCENT (the
+# reference's test_loss_descends_smollm) and the resumed run's last 5
+# losses equal the unbroken run's within the reference test's tolerance
+TRAIN_SMOL = dict(steps=20, global_batch=8, seq_len=1024, remat="full", lr=2e-3)
+TRAIN_KILL_AT, TRAIN_DESCENT = 10, 0.3
+TRAIN_RESUME_TOL = dict(rtol=1e-4, atol=1e-5)
+# 13b: one make_train_step step of each smoke config (f32) on the card and
+# on the CPU from the same weights and batch: loss within TRAIN_LOSS_REL,
+# grad_norm within TRAIN_NORM_REL relative; gradients and updated
+# parameters within TRAIN_PARAM_REL of each leaf's max-abs
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 32
+TRAIN_CPU_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+TRAIN_LOSS_REL, TRAIN_NORM_REL, TRAIN_PARAM_REL = 1e-5, 1e-4, 1e-4
+# 13c: (arch, layers (None: all)), TRAIN_FULL_STEPS steps each at batch x
+# seq; deepseek and rwkv6 cut in depth so that a step's peak stays within
+# TRAIN_PEAK_BYTES (12 bytes a parameter: bf16 weights and gradients, f32 m
+# and v)
+TRAIN_FULL = (("hubert-xlarge", None), ("zamba2-1.2b", None), ("deepseek-v2-lite-16b", 4),
+              ("rwkv6-7b", 8))
+TRAIN_FULL_BATCH, TRAIN_FULL_SEQ, TRAIN_FULL_STEPS = 4, 512, 3
+TRAIN_PEAK_BYTES = 60e9
 
 # the kernel forms each part of phase 8 must launch
 UPDATE_FORMS = {
@@ -2938,7 +2988,8 @@ def moe_ssm_consistency(torch, M, cfg, model, tok, dev) -> dict:
     positions S - 1 .. S + 2. MoE: prefill's last logits against
     forward_train's last position over the same S tokens."""
     S = tok.shape[1] - (0 if cfg.moe else 3)
-    full, _, _ = M.forward_train(model, cfg, {"tokens": tok})
+    with torch.no_grad():
+        full, _, _ = M.forward_train(model, cfg, {"tokens": tok}, remat="none")
     cache = M.init_cache(cfg, tok.shape[0], LM_S_MAX, torch.float32, dev)
     logits, cache = M.prefill(model, cfg, {"tokens": tok[:, :S]}, cache)
     steps = [logits]
@@ -2958,12 +3009,14 @@ def mla_consistency(torch, A, cfg, mixer, S: int, seed: int, dev) -> dict:
     g = torch.Generator(dev).manual_seed(seed)
     x = torch.randn((2, S + 1, cfg.d_model), generator=g, device=dev)
     pos = torch.arange(S + 1, device=dev).expand(2, S + 1)
-    full = A.mla_train(mixer, cfg, x, pos)
+    with torch.no_grad():
+        full = A.mla_train(mixer, cfg, x, pos)
     m = cfg.mla
     cache = A.KVCache(k=torch.zeros((2, LM_S_MAX, m.kv_lora_rank + m.qk_rope_head_dim), device=dev),
                       v=torch.zeros((2, 0), device=dev))
-    pre, cache = A.mla_prefill(mixer, cfg, x[:, :S], pos[:, :S], cache)
-    step, _ = A.mla_decode(mixer, cfg, x[:, S:], cache, S)
+    with torch.no_grad():
+        pre, cache = A.mla_prefill(mixer, cfg, x[:, :S], pos[:, :S], cache)
+        step, _ = A.mla_decode(mixer, cfg, x[:, S:], cache, S)
     part = torch.cat([pre, step], dim=1)
     return dict(config=cfg.name, layer=0, prompt=S, max_abs_err=float((part - full).abs().max()),
                 max_abs_out=float(full.abs().max()), worst_over_allowed=worst(full, part))
@@ -3061,6 +3114,292 @@ def moe_ssm_phase(torch, np, K, dev, seed: int, prof_dir: Path | None) -> dict:
     check(not any(counts.values()), f"phase 12 launched port kernels: {counts}")
     check(out["seconds"] <= MOE_SSM_BUDGET_S,
           f"phase 12 took {out['seconds']:.1f} s > {MOE_SSM_BUDGET_S} s")
+    return out
+
+
+def train_bound(cfg, batch: int, seq: int) -> dict:
+    """The least time of one training step (forward, backward, AdamW) on
+    the card: the larger of (a) its FLOPs, 6 per parameter a product reads
+    per token (the active ones for MoE; an embedding lookup is no product,
+    a tied head is) plus attention's scores and values (forward and twice
+    that backward; causal rows see half the keys), over the bf16 peak; and
+    (b) its bytes, each weight read twice (forward, backward), each
+    gradient written and read once, f32 m and v read and written, each
+    weight written, over the card's memory rate."""
+    n = cfg.active_param_count()
+    table = cfg.vocab_size * cfg.d_model
+    lookup = table if cfg.input_mode != "frames" and not cfg.tie_embeddings else 0
+    tokens = batch * seq
+    flops = 6 * (n - lookup) * tokens
+    causal = 0.5 if cfg.causal else 1.0
+    if cfg.mla:
+        qk, vd = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim, cfg.mla.v_head_dim
+    else:
+        qk = vd = cfg.resolved_head_dim
+    attn_layers = sum(k == "attn" for k in cfg.pattern)
+    flops += attn_layers * 3 * 2 * batch * seq * seq * causal * cfg.num_heads * (qk + vd)
+    wb = 2 if cfg.param_dtype == "bfloat16" else 4
+    total = cfg.param_count()
+    nbytes = total * (2 * wb + 2 * wb + 16 + wb)
+    flops_ms, bytes_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(flops=flops, bytes=nbytes, flops_ms=flops_ms, bytes_ms=bytes_ms,
+                bound_ms=max(flops_ms, bytes_ms),
+                bound_by="operations" if flops_ms >= bytes_ms else "bytes")
+
+
+class TimedSteps:
+    """While active, every train step a ``steps.make_train_step`` bundle runs
+    is timed (host clock, card synced) into ``ms``: the launcher finds the
+    factory through its module, so its bundles pass here."""
+
+    def __init__(self, torch, steps_mod):
+        self.torch, self.steps, self.ms = torch, steps_mod, []
+
+    def __enter__(self):
+        self.make = make = self.steps.make_train_step
+
+        def timed(*args, **kwargs):
+            bundle = make(*args, **kwargs)
+            bundle.fn = timed_calls(self.torch, bundle.fn, self.ms)
+            return bundle
+
+        self.steps.make_train_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.steps.make_train_step = self.make
+
+
+def smol_runs(torch, np, steps_mod, launch_train, cfg, dev, work: Path) -> dict:
+    """13a's three launcher runs: unbroken, killed at TRAIN_KILL_AT, resumed."""
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    run = dict(device=dev, log_every=5, **TRAIN_SMOL)
+    with TimedSteps(torch, steps_mod) as full_t:
+        full = launch_train.train(cfg, **run)
+    with TimedSteps(torch, steps_mod) as part_t:
+        part = launch_train.train(cfg, stop_after=TRAIN_KILL_AT, ckpt_dir=str(work),
+                                  ckpt_every=TRAIN_KILL_AT, **run)
+    with TimedSteps(torch, steps_mod) as res_t:
+        resumed = launch_train.train(cfg, ckpt_dir=str(work), ckpt_every=TRAIN_KILL_AT, **run)
+    shutil.rmtree(work, ignore_errors=True)
+    a, b = np.asarray(full["losses"][-5:]), np.asarray(resumed["losses"][-5:])
+    worst_resume = float((np.abs(b - a) / (TRAIN_RESUME_TOL["atol"]
+                                           + TRAIN_RESUME_TOL["rtol"] * np.abs(a))).max())
+    return dict(losses=full["losses"], killed_losses=part["losses"],
+                resumed_losses=resumed["losses"],
+                resume_max_abs_err=float(np.abs(b - a).max()), resume_worst_over_allowed=worst_resume,
+                step_ms=full_t.ms, killed_step_ms=part_t.ms, resumed_step_ms=res_t.ms)
+
+
+def close_leaves(torch, card: list, cpu: list, rel: float, skip: list | None = None) -> dict:
+    """Leaf by leaf (the same order), max |card - cpu| against rel x the
+    CPU leaf's max-abs: the worst ratio and the elements past it, leaving
+    out the elements ``skip`` marks (each a bool tensor or None)."""
+    worst, past = 0.0, 0
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        diff = (a.detach().float().cpu() - b.detach().float()).abs()
+        if skip is not None:
+            diff = diff[~skip[i]]
+        lim = rel * float(b.detach().abs().max()) or rel
+        if diff.numel():
+            worst = max(worst, float(diff.max()) / lim)
+            past += int((diff > lim).sum())
+    return dict(worst_over_allowed=worst, past=past)
+
+
+def train_card_vs_cpu(torch, np, M, steps_mod, stream_cls, moe, cfg, dev, seed: int) -> dict:
+    """13b for one smoke config (f32): the loss's gradients, then one
+    make_train_step step, on the card and on a CPU copy of the same weights
+    and batch. Adam divides each element's gradient by its RMS, so an
+    element whose CPU gradient lies within TRAIN_PARAM_REL of its leaf's
+    max-abs of zero (inside the gradients' own tolerance) may move by up
+    to 2 lr either way: those elements are counted apart and held to 2 lr."""
+    from repro_torch.configs import input_specs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+
+    specs = input_specs(cfg, ShapeSpec("train", TRAIN_CPU_SEQ, TRAIN_CPU_BATCH, "train"))
+    opt = OptConfig(**TRAIN_CPU_OPT)
+    card_b = steps_mod.make_train_step(cfg, specs, opt, remat="full", seed=seed, device=dev)
+    cpu_b = steps_mod.make_train_step(cfg, specs, opt, remat="full", seed=seed, device="cpu")
+    card = card_b.init()
+    model = copy.deepcopy(card.params).to("cpu")
+    cpu = steps_mod.TrainState(model, init_opt_state(list(model.parameters()), opt))
+    batch = {k: torch.from_numpy(v) for k, v in
+             stream_cls(cfg, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, seed=seed).next_batch().items()}
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+
+    def grads(state, b):
+        loss, _ = M.loss_fn(state.params, cfg, b, remat="none")
+        return torch.autograd.grad(loss, list(state.params.parameters()))
+
+    g_card, g_cpu = grads(card, on_card), grads(cpu, batch)
+    noise = [g.abs() <= TRAIN_PARAM_REL * float(g.abs().max()) for g in g_cpu]
+    with RouteLog(moe) as card_log:
+        card, m_card = card_b.fn(card, on_card)
+    with RouteLog(moe) as cpu_log:
+        cpu, m_cpu = cpu_b.fn(cpu, batch)
+    p_card, p_cpu = list(card.params.parameters()), list(cpu.params.parameters())
+    adam = [(a.detach().float().cpu() - b.detach())[n].abs() for a, b, n in zip(p_card, p_cpu, noise)]
+    out = dict(config=cfg.name, loss_card=float(m_card["loss"]), loss_cpu=float(m_cpu["loss"]),
+               loss_rel_err=abs(float(m_card["loss"]) / float(m_cpu["loss"]) - 1),
+               grad_norm_rel_err=abs(float(m_card["grad_norm"]) / float(m_cpu["grad_norm"]) - 1),
+               grads=close_leaves(torch, g_card, g_cpu, TRAIN_PARAM_REL),
+               params=close_leaves(torch, p_card, p_cpu, TRAIN_PARAM_REL, noise),
+               near_zero_grad_elements=int(sum(int(n.sum()) for n in noise)),
+               near_zero_max_move_over_lr=max([float(d.max()) for d in adam if d.numel()] or [0.0])
+               / TRAIN_CPU_OPT["lr"])
+    if moe is not None:
+        out["routes"] = route_diff(card_log.calls, cpu_log.calls, cfg.moe.top_k)
+    return out
+
+
+def train_phase(torch, np, K, dev, seed: int, work: Path, prof_dir: Path | None) -> dict:
+    """Phase 13. (a) smollm-135m at full width through the launcher
+    (``launch.train.train``): descent, kill and resume; (b) every smoke
+    config's train step on the card against the CPU (f32); (c) full-width
+    (or depth-cut) steps of hubert-xlarge, zamba2-1.2b, deepseek-v2-lite-16b
+    and rwkv6-7b. No port kernel launches (asserted)."""
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config, input_specs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.models import moe, steps as steps_mod
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.optimizer import OptConfig
+
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    out: dict = {"card_vs_cpu": [], "full": {}, "profile": {}}
+
+    # -- 13a: smollm-135m at full width through the launcher ------------------
+    cfg = get_config("smollm-135m")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    a = smol_runs(torch, np, steps_mod, launch_train, cfg, dev, work)
+    a["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    if a["resume_worst_over_allowed"] > 1.0:
+        # the card may not repeat itself: again under deterministic
+        # algorithms, recording the ops that have none (warn_only)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                a["deterministic"] = smol_runs(torch, np, steps_mod, launch_train, cfg, dev, work)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        a["deterministic"]["warnings"] = sorted({str(c.message)[:200] for c in caught})
+        print("train 13a: the resumed run differs; under deterministic algorithms: "
+              + json.dumps({k: v for k, v in a["deterministic"].items() if "ms" not in k}),
+              flush=True)
+    steady = a["step_ms"][1:]
+    tokens = TRAIN_SMOL["global_batch"] * TRAIN_SMOL["seq_len"]
+    a.update(config=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+             params=cfg.param_count(), dtype=cfg.param_dtype, **{k: v for k, v in TRAIN_SMOL.items()},
+             first_step_ms=a["step_ms"][0], step=wall_stats(np, steady),
+             tokens_per_s=tokens / (float(np.median(steady)) / 1e3),
+             bound=train_bound(cfg, TRAIN_SMOL["global_batch"], TRAIN_SMOL["seq_len"]))
+    out["smollm"] = a
+    print(f"train 13a {cfg.name}: losses {[round(x, 4) for x in a['losses']]}; resumed "
+          f"{[round(x, 4) for x in a['resumed_losses']]}", flush=True)
+    print(f"train 13a {cfg.name}: step p50 {a['step']['p50_ms']:.2f} / p95 "
+          f"{a['step']['p95_ms']:.2f} ms (first {a['first_step_ms']:.1f} ms), "
+          f"{a['tokens_per_s']:.0f} tokens/s, bound {a['bound']['bound_ms']:.3f} ms by "
+          f"{a['bound']['bound_by']} ({a['bound']['flops']:.3g} FLOPs, {a['bound']['bytes']:.3g} "
+          f"bytes), peak {a['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
+    if prof_dir is not None:
+        specs = input_specs(cfg, ShapeSpec("train", TRAIN_SMOL["seq_len"],
+                                           TRAIN_SMOL["global_batch"], "train"))
+        b = steps_mod.make_train_step(cfg, specs, OptConfig(lr=TRAIN_SMOL["lr"]),
+                                      remat=TRAIN_SMOL["remat"], seed=seed, device=dev)
+        st = b.init()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticStream(
+            cfg, TRAIN_SMOL["global_batch"], TRAIN_SMOL["seq_len"]).next_batch().items()}
+        b.fn(st, batch)
+        out["profile"].update(profile_runs(torch, {"train_step_smollm": [
+            lambda: b.fn(st, batch)] * 2}, prof_dir))
+        del st, b, batch
+    torch.cuda.empty_cache()
+
+    # -- 13b: every smoke config, card against CPU, f32 ---------------------
+    for arch in ARCH_IDS:
+        r = train_card_vs_cpu(torch, np, M, steps_mod, SyntheticStream, moe if get_smoke_config(
+            arch).moe else None, get_smoke_config(arch), dev, seed)
+        out["card_vs_cpu"].append(r)
+        print("train 13b card vs CPU: " + json.dumps(r), flush=True)
+
+    # -- 13c: full-width steps of the other families ------------------------
+    for arch, layers in TRAIN_FULL:
+        published = get_config(arch)
+        cfg = published if layers is None else cut_depth(published, layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        specs = input_specs(cfg, ShapeSpec("train", TRAIN_FULL_SEQ, TRAIN_FULL_BATCH, "train"))
+        t = time.perf_counter()
+        bundle = steps_mod.make_train_step(
+            cfg, specs, OptConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_FULL_STEPS),
+            remat="full", seed=seed, device=dev)
+        state = bundle.init()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        stream = SyntheticStream(cfg, TRAIN_FULL_BATCH, TRAIN_FULL_SEQ, seed=seed)
+        ms, metrics = [], []
+        fn = timed_calls(torch, bundle.fn, ms)
+        for _ in range(TRAIN_FULL_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in stream.next_batch().items()}
+            state, m = fn(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        finite = all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in metrics)
+        finite = finite and all(bool(torch.isfinite(p).all()) for p in state.params.parameters())
+        reduced = [f"{TRAIN_FULL_STEPS} steps at global batch {TRAIN_FULL_BATCH} x seq "
+                   f"{TRAIN_FULL_SEQ}"]
+        if layers is not None:
+            reduced.append(f"layers {published.num_layers} -> {layers} (12 bytes a parameter: "
+                           f"{published.param_count() * 12 / 1e9:.0f} GB at the published depth)")
+        rec = dict(config=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+                   params=cfg.param_count(), dtype=cfg.param_dtype, init_s=init_s,
+                   reduced=reduced, metrics=metrics, finite=finite, step_ms=ms,
+                   step=wall_stats(np, ms[1:]),
+                   tokens_per_s=TRAIN_FULL_BATCH * TRAIN_FULL_SEQ / (float(np.median(ms[1:])) / 1e3),
+                   bound=train_bound(cfg, TRAIN_FULL_BATCH, TRAIN_FULL_SEQ),
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        out["full"][arch] = rec
+        print(f"train 13c {arch}: " + json.dumps(rec), flush=True)
+        print(f"train 13c {arch} ({cfg.num_layers} layers): step p50 {rec['step']['p50_ms']:.1f} ms "
+              f"(first {ms[0]:.1f}), {rec['tokens_per_s']:.0f} tokens/s, bound "
+              f"{rec['bound']['bound_ms']:.3f} ms by {rec['bound']['bound_by']}, peak "
+              f"{rec['max_memory_allocated'] / 2**30:.2f} GiB, losses "
+              f"{[round(m['loss'], 4) for m in metrics]}", flush=True)
+        del state, bundle, fn
+        torch.cuda.empty_cache()
+
+    counts = K.launch_counts()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 13: {out['seconds']:.1f} s (budget {TRAIN_BUDGET_S:.0f} s)", flush=True)
+    a = out["smollm"]
+    check(a["losses"][-1] < a["losses"][0] - TRAIN_DESCENT,
+          f"smollm-135m: loss {a['losses'][0]:.4f} -> {a['losses'][-1]:.4f} did not descend by "
+          f"{TRAIN_DESCENT}")
+    resume = a.get("deterministic", a)
+    check(resume["resume_worst_over_allowed"] <= 1.0,
+          f"smollm-135m: the resumed losses differ from the unbroken run's past "
+          f"{TRAIN_RESUME_TOL}: {resume['resume_max_abs_err']:.3g}")
+    for r in out["card_vs_cpu"]:
+        bad = (r["loss_rel_err"] > TRAIN_LOSS_REL or r["grad_norm_rel_err"] > TRAIN_NORM_REL
+               or r["grads"]["worst_over_allowed"] > 1.0 or r["params"]["worst_over_allowed"] > 1.0
+               or r["near_zero_max_move_over_lr"] > 2.0
+               or ("routes" in r and r["routes"]["differ"] > 0))
+        check(not bad, f"{r['config']}: the card's train step differs from the CPU's: "
+              + json.dumps(r))
+    for arch, r in out["full"].items():
+        check(r["finite"], f"{arch}: non-finite loss, gradient norm or parameters")
+        check(r["max_memory_allocated"] <= TRAIN_PEAK_BYTES,
+              f"{arch}: peak {r['max_memory_allocated'] / 1e9:.1f} GB > {TRAIN_PEAK_BYTES / 1e9} GB")
+    check(not any(counts.values()), f"phase 13 launched port kernels: {counts}")
+    check(out["seconds"] <= TRAIN_BUDGET_S,
+          f"phase 13 took {out['seconds']:.1f} s > {TRAIN_BUDGET_S} s")
     return out
 
 
@@ -3219,6 +3558,11 @@ def run(args) -> int:
     # 12. the MoE, MLA and SSM LM stacks (no port kernel: asserted there)
     lm_moe_ssm = moe_ssm_phase(torch, np, K, dev, args.seed,
                                Path(args.out).parent if args.profile else None)
+    # 13. training (no port kernel: asserted there)
+    train = train_phase(torch, np, K, dev, args.seed, ROOT / "build" / "train_phase",
+                        Path(args.out).parent if args.profile else None)
+    for entry in line["kernels"]:
+        entry["launches_train"] = 0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(kernels=line["kernels"], main_path=path,
@@ -3226,7 +3570,8 @@ def run(args) -> int:
                                                   wide_turns=wide_turns, profile=prof,
                                                   updates=updates, collection=collection,
                                                   serve=serve, lm=lm,
-                                                  lm_moe_ssm=lm_moe_ssm, card=card,
+                                                  lm_moe_ssm=lm_moe_ssm, train=train,
+                                                  card=card,
                                                   launch_floor_ms=floor_ms),
                                              indent=1))
     print(json.dumps(line))

@@ -23,9 +23,10 @@ def dtype_of(name: str) -> torch.dtype:
 
 def param_dict(tree: dict) -> nn.ParameterDict:
     """A nested ParameterDict over ``tree`` (tensors and dicts of them),
-    frozen: the port serves and runs the forward pass only."""
-    out = nn.ParameterDict({k: param_dict(v) if isinstance(v, dict) else v for k, v in tree.items()})
-    return out.requires_grad_(False)
+    trainable. Serving runs under ``torch.no_grad`` (``model.prefill``,
+    ``decode_step``), so it builds no graph."""
+    return nn.ParameterDict({k: param_dict(v) if isinstance(v, dict) else v
+                             for k, v in tree.items()})
 
 
 # ---------------------------------------------------------------------------

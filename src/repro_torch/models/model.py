@@ -1,19 +1,23 @@
 """Model assembly: blocks → stack → train/prefill/decode applies (the port
-of ``repro.models.model``, serving half).
+of ``repro.models.model``).
 
 Pre-norm residual blocks. Each layer is a ``Block`` (an ``nn.ModuleDict``
 of ``norm1``, ``mixer``, ``norm2``, ``ffn``, each a ParameterDict keyed as
 the reference's parameter pytree is) in the ``Model``'s ``nn.ModuleList``,
 and a Python loop runs the layers where the reference scans a stack of
 them. The reference's function names (``block_train``, ``prefill``,
-``decode_step``, ...) are thin functions over these modules, with the
-reference's signatures.
+``decode_step``, ``loss_fn``, ...) are thin functions over these modules,
+with the reference's signatures.
 
 Covered: every block of the pool — GQA and MLA attention, the MLP and
 MoE FFNs, Mamba2 and RWKV6 mixers — in the dense, VLM, MoE, hybrid and SSM
-stacks, and the encoder-only audio stack (``forward_train``). Training
-(``loss_fn``, remat) belongs to a later slice; ``forward_train`` is
-forward only (with the MoE aux summed over layers).
+stacks, and the encoder-only audio stack. The parameters are trainable:
+``forward_train`` and ``loss_fn`` run in the caller's grad mode, with the
+reference's three remat modes per layer (``_remat_wrap``); ``prefill`` and
+``decode_step`` run under ``torch.no_grad``, so serving builds no graph.
+``reference_tree`` stacks per-layer tensors (parameters, gradients,
+optimizer moments) back into the reference's pytree, and
+``load_reference_tree`` copies such a tree into them.
 ``constrain_batch_dim`` shards over a mesh and is a no-op without one, so
 it is dropped. As in the reference, token ids must lie in [0, vocab):
 JAX clamps an out-of-range id where torch raises; the engine only feeds
@@ -28,11 +32,14 @@ always f32), and return them.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import functools
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device
 from . import attention as attn
@@ -67,9 +74,9 @@ class Model(nn.Module):
     def __init__(self, embed: Optional[torch.Tensor], final_norm: dict,
                  lm_head: Optional[torch.Tensor], blocks: list[Block]):
         super().__init__()
-        self.embed = None if embed is None else nn.Parameter(embed, requires_grad=False)
+        self.embed = None if embed is None else nn.Parameter(embed)
         self.final_norm = param_dict(final_norm)
-        self.lm_head = None if lm_head is None else nn.Parameter(lm_head, requires_grad=False)
+        self.lm_head = None if lm_head is None else nn.Parameter(lm_head)
         self.blocks = nn.ModuleList(blocks)
 
 
@@ -185,6 +192,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device: DeviceLike = Non
     dev = resolve_device(device)
     if gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, parameters on {dev}")
+    return _init(gen, cfg)
+
+
+def _init(gen: torch.Generator, cfg: ModelConfig) -> Model:
     dt = dtype_of(cfg.param_dtype)
     blocks = [block_init(gen, cfg, kind) for kind in cfg.pattern]
     embed = lm_head = None
@@ -192,7 +203,21 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device: DeviceLike = Non
         embed = embed_init(gen, (cfg.vocab_size, cfg.d_model), dt)
     if not cfg.tie_embeddings or cfg.input_mode == "frames":
         lm_head = embed_init(gen, (cfg.d_model, cfg.vocab_size), dt)
-    return Model(embed, rmsnorm_init(cfg.d_model, dt, dev), lm_head, blocks)
+    return Model(embed, rmsnorm_init(cfg.d_model, dt, gen.device), lm_head, blocks)
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device: the init functions
+    then make storage-free tensors, and draw nothing."""
+
+    device = torch.device("meta")
+
+
+def param_shapes(cfg: ModelConfig) -> Model:
+    """The model's parameters as tensors on ``device="meta"``: every shape
+    and dtype, no storage (what ``jax.eval_shape`` of ``init_params`` gives
+    the reference)."""
+    return _init(_MetaGenerator(), cfg)
 
 
 def params_from_reference(ref_params: dict, cfg: ModelConfig, device: DeviceLike = None) -> Model:
@@ -253,16 +278,174 @@ def _logits(model: Model, cfg: ModelConfig, x):
     return (x @ head.to(x.dtype)).float()
 
 
-@torch.no_grad()
-def forward_train(model: Model, cfg: ModelConfig, batch: dict):
-    """Returns (logits (B,S,V) f32, target_mask, aux_loss); forward only."""
-    x, pos, mask = _embed_inputs(model, cfg, batch)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """'dots': keep the outputs of products without batch dims (``x @ W``
+    runs as ``aten.mm``), recompute everything else (the batched attention
+    and SSM einsums among it), as ``dots_with_no_batch_dims_saveable``."""
+    if op in _SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn: Callable, remat) -> Callable:
+    """remat: 'none' | 'full' (save nothing: each layer's forward runs again
+    in the backward pass) | 'dots' (save the products' outputs), per layer
+    as the reference wraps ``block_train``."""
+    if remat in (False, "none"):
+        return fn
+    if remat in (True, "full"):
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_products))
+    raise ValueError(remat)
+
+
+def _run_blocks_train(model: Model, cfg: ModelConfig, x, positions, remat="full"):
+    """Every layer in order (the reference scans each segment); returns (x,
+    the MoE aux summed over layers, f32)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in model.blocks:
-        x, a = block_train(blk, cfg, blk.kind, x, pos)
-        aux = aux + a
+        f = _remat_wrap(functools.partial(block_train, blk, cfg, blk.kind), remat)
+        x, a = f(x, positions)
+        aux_total = aux_total + a
+    return x, aux_total
+
+
+def forward_train(model: Model, cfg: ModelConfig, batch: dict, remat="full"):
+    """Returns (logits (B,S,V) f32, target_mask, aux_loss), in the caller's
+    grad mode."""
+    x, pos, mask = _embed_inputs(model, cfg, batch)
+    x, aux = _run_blocks_train(model, cfg, x, pos, remat)
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
     return _logits(model, cfg, x), mask, aux
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean CE. The target logit is gathered where the reference contracts
+    a one-hot over the vocab (a choice for its vocab-sharded logits, which
+    this port does not shard): with finite logits both give the same value,
+    a sum of zeros and one term being exact."""
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt_logit = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return (lse - tgt_logit).mean()
+
+
+def loss_fn(model: Model, cfg: ModelConfig, batch: dict, remat="full"):
+    """Next-token CE for causal archs (a VLM's image positions predict
+    nothing); frame classification against ``labels`` for encoders.
+    Returns (loss + 0.01·aux, (ce, aux))."""
+    logits, mask, aux = forward_train(model, cfg, batch, remat)
+    if cfg.causal:
+        targets = batch["tokens"]
+        if cfg.input_mode == "vlm":
+            logits = logits[:, batch["image_embeds"].shape[1]:, :]
+        loss = _xent(logits[:, :-1], targets[:, 1:])
+    else:
+        loss = _xent(logits, batch["labels"])
+    return loss + 0.01 * aux, (loss, aux)
+
+
+# ---------------------------------------------------------------------------
+# the reference's stacked pytree
+# ---------------------------------------------------------------------------
+
+
+def _reference_slots(model: Model, cfg: ModelConfig) -> dict:
+    """Each parameter's name → (its path in the reference's pytree, its
+    layer's index in that segment's leading axis, or None off the
+    blocks)."""
+    where = [(s, j) for s, (_, ln) in enumerate(segments(cfg)) for j in range(ln)]
+    out = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            s, j = where[int(parts[1])]
+            out[name] = (("blocks", s, *parts[2:]), j)
+        else:
+            out[name] = (tuple(parts), None)
+    return out
+
+
+def reference_ndims(model: Model, cfg: ModelConfig) -> list[int]:
+    """Each parameter's dimension count in the reference's pytree, in
+    ``model.parameters()`` order: a block leaf carries its segment's
+    leading L axis there (even a segment of one layer), so it has one more
+    than the port's per-layer tensor."""
+    return [p.ndim + (j is not None) for p, (_, j) in
+            zip(model.parameters(), _reference_slots(model, cfg).values())]
+
+
+def reference_tree(model: Model, cfg: ModelConfig, values: Optional[list] = None) -> dict:
+    """``values`` (tensors in ``model.parameters()`` order, default the
+    parameters themselves) keyed as the reference's parameter pytree: each
+    segment's layers stacked on a leading axis, ``blocks`` a list of
+    segment dicts. Leaves are detached tensors on their own device."""
+    values = [p.detach() for p in model.parameters()] if values is None else values
+    tree: dict = {"blocks": [{} for _ in segments(cfg)]}
+    stacks: dict = {}
+    for v, (path, j) in zip(values, _reference_slots(model, cfg).values()):
+        if j is None:
+            _put(tree, path, v.detach())
+        else:
+            stacks.setdefault(path, []).append(v.detach())
+    for path, layers in stacks.items():
+        _put(tree, path, torch.stack(layers))
+    return tree
+
+
+def load_reference_tree(model: Model, cfg: ModelConfig, tree: dict,
+                        targets: Optional[list] = None) -> None:
+    """Copy a reference-keyed ``tree`` (as ``reference_tree`` gives, on any
+    device, or the reference's numpy leaves) into ``targets`` (tensors in
+    ``model.parameters()`` order, default the parameters), in place and in
+    each target's dtype."""
+    targets = list(model.parameters()) if targets is None else targets
+    leaves: dict = {}  # each numpy leaf converted once, not once a layer
+    with torch.no_grad():
+        for t, (path, j) in zip(targets, _reference_slots(model, cfg).values()):
+            leaf = _get(tree, path)
+            if not isinstance(leaf, torch.Tensor):
+                if path not in leaves:
+                    leaves[path] = _from_numpy(leaf, t.device)
+                leaf = leaves[path]
+            t.copy_(leaf if j is None else leaf[j])
+
+
+def _put(tree, path: tuple, leaf) -> None:
+    for k in path[:-1]:
+        tree = tree[k] if isinstance(k, int) else tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def _get(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def params_to_reference(model: Model, cfg: ModelConfig) -> dict:
+    """The inverse of ``params_from_reference``: the parameters as the
+    reference's pytree of stacked numpy leaves (bf16 ones as float32
+    values: numpy has no bfloat16 without ml_dtypes)."""
+    return _tree_map(_to_numpy, reference_tree(model, cfg))
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -276,8 +459,16 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16,
     B, ...) of zeros: a ``KVCache`` for attention (GQA (B, S_max, H_kv, Dh)
     k and v; MLA the packed (B, S_max, r + dr) k and a zero-width v), the
     Mamba2 or RWKV6 state dict for SSM blocks."""
-    dev = resolve_device(device)
+    return _zero_cache(cfg, batch, s_max, dtype, resolve_device(device))
 
+
+def cache_shapes(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16) -> list[Cache]:
+    """``init_cache``'s structure as tensors on ``device="meta"``: shapes and
+    dtypes, no storage."""
+    return _zero_cache(cfg, batch, s_max, dtype, torch.device("meta"))
+
+
+def _zero_cache(cfg: ModelConfig, batch: int, s_max: int, dtype, dev: torch.device) -> list[Cache]:
     def one(kind: str) -> Cache:
         if kind == "attn":
             if cfg.mla:
@@ -356,9 +547,5 @@ def cache_to_reference(cache: list[Cache]) -> list:
     """The port's cache as numpy, leaf for leaf the reference's layout: a
     (k, v) tuple per attention segment, a dict per SSM segment (bf16 leaves
     as float32 values)."""
-    def np_(t):
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-    return [{k: np_(v) for k, v in c.items()} if isinstance(c, dict)
-            else (np_(c.k), np_(c.v)) for c in cache]
+    return [{k: _to_numpy(v) for k, v in c.items()} if isinstance(c, dict)
+            else (_to_numpy(c.k), _to_numpy(c.v)) for c in cache]

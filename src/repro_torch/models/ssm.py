@@ -18,10 +18,14 @@ model; a forward without state pads the sequence to a chunk multiple, and
 one that returns the state (a prefill) of another length raises. A Mamba2
 step on an f32 cache with bf16 activations runs its conv in f32, as JAX's
 promotion makes the reference's (torch's einsum does not promote, so the
-step casts first). One deliberate difference: ``rwkv6_step`` reads its
-token-shift carry in the activations' dtype. The carry holds earlier
-activations, so this loses nothing, and it keeps the step's output in that
-dtype; the reference promotes it to f32 when the cache is f32, which its
+step casts first). Two deliberate differences. Mamba2's intra-chunk decay
+exp(l_i - l_j) is taken of an exponent masked to the causal part: the
+values are the reference's bit for bit, but its gradient is finite where
+the reference's, which exponentiates the whole (Q, Q) grid, is NaN once a
+chunk's cumulative decay passes ~88 (zamba2-1.2b's chunk of 128). And
+``rwkv6_step`` reads its token-shift carry in the activations' dtype. The
+carry holds earlier activations, so this loses nothing, and it keeps the
+step's output in that dtype; the reference promotes it to f32 when the cache is f32, which its
 layer scan then refuses (a bf16 RWKV6 model cannot decode on an f32 cache
 there), and equals it when the cache is in the activations' dtype.
 """
@@ -131,7 +135,10 @@ def mamba2_forward(params, cfg: ModelConfig, x: torch.Tensor, return_state: bool
         la = torch.cumsum(dtq * A, dim=1)  # (B,Q,nh) cumulative log-decay <= 0
         # intra-chunk: M_ijh = exp(l_i - l_j) · (C_i·B_j) · dt_j, i >= j
         cb = torch.einsum("bis,bjs->bij", cq, bq)  # (B,Q,Q)
-        dmat = torch.exp(la[:, :, None, :] - la[:, None, :, :])  # (B,Q,Q,nh)
+        # the exponent masked first: above the diagonal l_i - l_j > 0 can
+        # overflow to inf, and the outer where's gradient times inf is NaN
+        seg = torch.where(mask[None, :, :, None], la[:, :, None, :] - la[:, None, :, :], -torch.inf)
+        dmat = torch.exp(seg)  # (B,Q,Q,nh)
         M = torch.where(mask[None, :, :, None], dmat * cb[..., None], 0.0)
         M = M * dtq[:, None, :, :]  # dt at the j (source) index
         y = torch.einsum("bijh,bjhd->bihd", M, xq)

@@ -1,5 +1,6 @@
 """Import hygiene of the PyTorch port: ``repro_torch`` and ``chip_smoke.py``
-import neither JAX nor anything of the JAX package ``repro``."""
+import neither JAX (nor ``ml_dtypes``, which the card's machine lacks) nor
+anything of the JAX package ``repro``."""
 import ast
 import subprocess
 import sys
@@ -14,7 +15,7 @@ FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def _imports(path: Path) -> list[str]:
@@ -43,7 +44,7 @@ def test_port_modules_load_without_jax():
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', sys.argv[1])\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'repro')]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
