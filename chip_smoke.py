@@ -198,7 +198,37 @@ Phases, each printed on its own lines; any failure exits non-zero:
     TRAIN_FULL_STEPS steps each at global batch 4 x seq 512: finite loss,
     gradient norm and parameters, peak within TRAIN_PEAK_BYTES, step ms,
     tokens/s, the bound. No port kernel launches (asserted); phase 13 must
-    take at most TRAIN_BUDGET_S.
+    take at most TRAIN_BUDGET_S. On one card the launcher takes the
+    mesh-free step.
+14. the dry-run and one rank of the 16 x 16 mesh, in processes of their
+    own (a process holds one default process group). (a) On the host, no
+    card memory: ``launch.dryrun.run_cell`` for DRYRUN_CELLS (cosmosann on
+    both production meshes, smollm-135m train_4k and decode_32k on the
+    single pod) under fake groups of 256 / 512 ranks; each must be ok and
+    cosmosann's argument bytes exactly COSMOS_ARG_BYTES; its memory, FLOPs,
+    collectives and trace seconds are printed. Its process starts with the
+    run (the train cell's trace takes about a minute and a half of host
+    CPU) and phase 14 reads its records. (b) Rank 0 of the 16 x 16 mesh on
+    the card under a fake group of 256 ranks (the other ranks' shares of
+    the collectives are fake, the local work real): the cosmosann cell's
+    search on its 39 062 rows (a seeded random graph, R_slack 41; 128
+    queries, L = 100, W = 4, k = 10), its partial bit-equal to the
+    mesh-free call on that shard, ``pq_adc.gathered``, ``topk_select.rank``
+    and ``flat_l2.gathered`` launched (counted from 0), p50 / p95 of
+    RANK_CALLS warmed calls; smollm-135m's decode_32k step on its local
+    batch of 8 and cache of 2 048 of 32 768 positions, its decode ms. Each
+    one's peak (``max_memory_allocated`` above the phase's baseline, taken
+    after a first product has allocated cuBLAS's workspace, a once-a-process
+    32 MiB the dry-run does not count) within RANK_PEAK_REL of (a)'s
+    argument + output + temp bytes.
+    (c) A real NCCL group of one rank on a (1, 1) mesh: the smoke
+    smollm-135m train step (f32) against the single-device step on the same
+    seed and batch (loss within MESH_LOSS_REL, parameters within
+    MESH_PARAM_REL of each leaf's max-abs, elements whose gradient lies
+    within the two paths' difference of zero within 2 lr), and
+    ``distributed_search_fn`` over SEARCH_SHARDS seeded shards equal to its
+    mesh-free call. (b) and (c) run side by side; phase 14 must take at
+    most DRYRUN_BUDGET_S on the clock.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -3403,6 +3433,305 @@ def train_phase(torch, np, K, dev, seed: int, work: Path, prof_dir: Path | None)
     return out
 
 
+# -- phase 14: the dry-run and one rank of the 16 x 16 mesh --------------------
+DRYRUN_BUDGET_S = 90.0  # phase 14's seconds on the clock must fit in this
+# 14a: cells traced on the host (no card memory), in a process started with the run
+DRYRUN_CELLS = (("cosmosann", "query", "single"), ("cosmosann", "query", "multi"),
+                ("smollm-135m", "train_4k", "single"), ("smollm-135m", "decode_32k", "single"))
+# one rank's shard-stacked index arrays and the replicated queries
+COSMOS_ARG_BYTES = {"single": 131_724_856, "multi": 66_452_254}
+# 14b: the measured peak against the dry-run's argument + output + temp bytes
+RANK_PEAK_REL = 0.15
+RANK_FORMS = ("pq_adc.gathered", "topk_select.rank", "flat_l2.gathered")
+RANK_CALLS = 5  # warmed calls timed
+# 14c: a (1, 1) mesh on a real NCCL group against the single-device step
+MESH_LOSS_REL, MESH_PARAM_REL = 1e-6, 1e-5
+SEARCH_SHARDS = 4
+
+
+def child(flag: str, out: Path, log: Path) -> subprocess.Popen:
+    """This script in a process of its own (a process holds one default
+    process group), writing its results to ``out``; killed at exit if it
+    is still running then."""
+    import atexit
+
+    p = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), flag, str(out)],
+                         stdout=open(log, "w"), stderr=subprocess.STDOUT, cwd=str(ROOT))
+    atexit.register(lambda: p.poll() is None and (p.kill(), p.wait()))
+    return p
+
+
+def dryrun_cells(out: Path) -> int:
+    """14a (a child process): trace DRYRUN_CELLS on the host's CPU."""
+    import torch
+
+    torch.set_num_threads(2)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+
+    t = time.perf_counter()
+    recs = [dryrun.run_cell(a, s, m, str(ROOT / "build" / "dryrun_phase"), force=True)
+            for a, s, m in DRYRUN_CELLS]
+    out.write_text(json.dumps({"cells": recs, "seconds": time.perf_counter() - t}))
+    return 0
+
+
+def rank_inputs(torch, cfg, n: int, shards: int, seed: int, dev):
+    """Seeded shard-stacked index arrays of ``shards`` shards of n rows (a
+    random graph of valid ids, random codes, vectors and one codebook),
+    and the queries."""
+    g = torch.Generator(dev).manual_seed(seed)
+    S, M, K, D = shards, cfg.M, cfg.K, cfg.dim
+    return dict(
+        neighbors=torch.randint(0, n, (S, n, cfg.R_slack), generator=g, device=dev,
+                                dtype=torch.int32),
+        codes=torch.randint(0, K, (S, n, M), generator=g, device=dev, dtype=torch.uint8),
+        versions=torch.zeros((S, n), dtype=torch.uint8, device=dev),
+        live=torch.ones((S, n), dtype=torch.bool, device=dev),
+        vectors=torch.randn(S, n, D, generator=g, device=dev),
+        doc_ids=torch.arange(S * n, device=dev).reshape(S, n),
+        medoid=torch.zeros(S, dtype=torch.int32, device=dev),
+        codebooks=torch.randn(S, M, K, D // M, generator=g, device=dev),
+        queries=torch.randn(cfg.query_batch, D, generator=g, device=dev))
+
+
+SEARCH_ARGS = ("neighbors", "codes", "versions", "live", "vectors", "doc_ids", "medoid",
+               "codebooks", "queries")
+
+
+def timed_ms(torch, fn, calls: int) -> list:
+    ms = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return ms
+
+
+def rank_phase(out: Path) -> int:
+    """14b (a child process): rank 0 of the 16 x 16 mesh on the card under a
+    fake group of 256 ranks: the other ranks' shares of the collectives are
+    fake, the local work is real. The cosmosann cell's search on the rank's
+    39 062 rows and smollm-135m's decode_32k step (a local batch of 8, a
+    local cache of 2 048 of 32 768 positions)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import cosmosann as cosmos_cfg, get_config
+    from repro_torch.launch import dryrun, mesh as meshmod
+    from repro_torch.models import sharding as S, steps as steps_mod
+    from repro_torch.partition.fanout import distributed_search_fn
+
+    dev = torch.device("cuda")
+    meshmod.start_process_group("fake", world_size=256)
+    mesh = meshmod.make_production_mesh(device="cuda")
+    res: dict = {}
+    # cosmosann: one rank's shard
+    cfg = cosmos_cfg.config()
+    n = cfg.total_vectors // 256
+    before = torch.cuda.memory_allocated()
+    for dt in (torch.float32, torch.bfloat16):  # cuBLAS's workspace, once a process
+        w = torch.ones((64, 64), dtype=dt, device=dev)
+        w = w @ w
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    res["cublas_workspace_bytes"] = base - before
+    torch.cuda.reset_peak_memory_stats()
+    a = rank_inputs(torch, cfg, n, 1, 0, dev)
+    args = [DTensor.from_local(a[k], mesh, [Shard(0), Shard(0)], run_check=False)
+            for k in SEARCH_ARGS[:-1]]
+    args.append(DTensor.from_local(a["queries"], mesh, [Replicate(), Replicate()],
+                                   run_check=False))
+    fn = dryrun.cosmos_search_fn(cfg, mesh)
+    K.reset_launch_counts()
+    _, _, (p_ids, p_d) = fn(*args, return_partials=True)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    one = distributed_search_fn(L=cfg.L_search, k=cfg.k, metric=cfg.metric,
+                                max_hops=-(-2 * cfg.L_search // cfg.beam_width),
+                                beam_width=cfg.beam_width, device=dev)
+    w_ids, w_d = one(*(a[k] for k in SEARCH_ARGS))
+    ms = timed_ms(torch, lambda: fn(*args), RANK_CALLS + 1)[1:]
+    res["cosmosann"] = dict(
+        rows=n, launches=counts, peak_bytes=peak,
+        partial_equal=bool(torch.equal(p_ids[0], w_ids) and torch.equal(p_d[0], w_d)),
+        ms=ms, p50_ms=float(np.percentile(ms, 50)), p95_ms=float(np.percentile(ms, 95)))
+    del args, a, p_ids, p_d
+    torch.cuda.empty_cache()
+    # smollm-135m decode_32k: rank 0's batch and cache shards
+    lm = get_config("smollm-135m")
+    B, S_len = 128, 32768
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = steps_mod.make_decode_step(lm, mesh, batch=B, s_max=S_len)
+    shapes = bundle.arg_shapes[0]
+    model = steps_mod.distribute_model(shapes, steps_mod.param_shardings(shapes, lm, mesh),
+                                       make=S.empty_dtensor)
+    g = torch.Generator(dev).manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.to_local().normal_(0.0, 0.02, generator=g)
+    cache = steps_mod.sharded_cache(lm, B, S_len, torch.bfloat16, mesh)
+    tok = S.empty_dtensor(bundle.arg_shapes[2], bundle.arg_shardings[2])
+    tok.to_local().copy_(torch.randint(0, lm.vocab_size, tok.to_local().shape, generator=g,
+                                       device=dev, dtype=torch.int32))
+    step = lambda: bundle.fn(model, cache, tok, S_len - 1)
+    logits, _ = step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = timed_ms(torch, step, RANK_CALLS + 1)[1:]
+    res["smollm_decode"] = dict(local_batch=int(tok.to_local().shape[0]),
+                                local_cache=int(cache[0].k.to_local().shape[2]),
+                                peak_bytes=peak, ms=ms,
+                                p50_ms=float(np.percentile(ms, 50)),
+                                p95_ms=float(np.percentile(ms, 95)),
+                                logits_local_shape=list(logits.to_local().shape))
+    out.write_text(json.dumps(res))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def nccl_phase(out: Path) -> int:
+    """14c (a child process): a real NCCL group of one rank on a (1, 1)
+    mesh. The smoke smollm-135m train step (f32) against the single-device
+    step on the same seed and batch; distributed_search_fn over
+    SEARCH_SHARDS seeded shards against its mesh-free call."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import cosmosann as cosmos_cfg, get_smoke_config, input_specs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import mesh as meshmod
+    from repro_torch.models import model as M, steps as steps_mod
+    from repro_torch.models.sharding import ReplicateFallback
+    from repro_torch.partition.fanout import distributed_search_fn
+    from repro_torch.train.optimizer import OptConfig
+
+    dev = torch.device("cuda")
+    meshmod.start_process_group("nccl")
+    mesh = meshmod.make_host_mesh((1, 1), ("data", "model"))
+    res: dict = {}
+    cfg = dataclasses.replace(get_smoke_config("smollm-135m"), param_dtype="float32",
+                              compute_dtype="float32")
+    specs = input_specs(cfg, ShapeSpec("t", 32, 4, "train"))
+    opt = OptConfig(lr=1e-3, warmup_steps=1)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=torch.Generator(dev)
+                           .manual_seed(2), device=dev, dtype=torch.int32)
+    b_mesh = steps_mod.make_train_step(cfg, mesh, specs, opt, seed=0)
+    b_one = steps_mod.make_train_step(cfg, specs, opt, seed=0, device=dev)
+    s_mesh, s_one = b_mesh.init(), b_one.init()
+    loss, _ = M.loss_fn(s_one.params, cfg, {"tokens": tokens}, "full")
+    grads = torch.autograd.grad(loss, list(s_one.params.parameters()))
+    with steps_mod._on_mesh(ReplicateFallback()):
+        loss_m, _ = M.loss_fn(s_mesh.params, cfg, {"tokens": tokens}, "full")
+        grads_m = [g.full_tensor() for g in
+                   torch.autograd.grad(loss_m, list(s_mesh.params.parameters()))]
+    s_mesh, m_mesh = b_mesh.fn(s_mesh, {"tokens": tokens})
+    s_one, m_one = b_one.fn(s_one, {"tokens": tokens})
+    worst, moved = 0.0, 0.0
+    for p, q, gr, gm in zip(s_mesh.params.parameters(), s_one.params.parameters(), grads,
+                            grads_m):
+        d = (p.full_tensor() - q).abs()
+        scale = float(q.abs().max()) or 1.0
+        # Adam normalises each element: one whose gradient lies within the
+        # two paths' difference of zero may move by up to its step either way
+        near = gr.abs() <= (gm - gr).abs()
+        worst = max(worst, float(d[~near].max()) / scale if bool((~near).any()) else 0.0)
+        moved = max(moved, float(d[near].max()) / opt.lr if bool(near.any()) else 0.0)
+    lm, lo = float(m_mesh["loss"]), float(m_one["loss"])
+    res["train"] = dict(loss_mesh=lm, loss_one=lo, loss_rel_err=abs(lm - lo) / abs(lo),
+                        param_worst_rel=worst, near_zero_max_move_over_lr=moved)
+    ccfg = cosmos_cfg.config()
+    a = rank_inputs(torch, ccfg, ccfg.total_vectors // 256, SEARCH_SHARDS, 3, dev)
+    kw = dict(L=ccfg.L_search, k=ccfg.k, metric=ccfg.metric, beam_width=ccfg.beam_width,
+              max_hops=-(-2 * ccfg.L_search // ccfg.beam_width))
+    got = distributed_search_fn(mesh, shard_axes=("data", "model"), **kw)(
+        *(a[k] for k in SEARCH_ARGS))
+    want = distributed_search_fn(device=dev, **kw)(*(a[k] for k in SEARCH_ARGS))
+    res["search"] = dict(shards=SEARCH_SHARDS,
+                         equal=bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])))
+    out.write_text(json.dumps(res))
+    meshmod.stop_process_group()
+    return 0
+
+
+def dryrun_phase(torch, work: Path, cells: subprocess.Popen, cells_out: Path,
+                 started: float) -> dict:
+    """Phase 14: 14a's records (their process started with the run), then
+    14b and 14c in processes of their own, side by side."""
+    t_phase = time.perf_counter()
+    work.mkdir(parents=True, exist_ok=True)
+    rank_out, nccl_out = work / "rank.json", work / "nccl.json"
+    procs = {"14b": (child("--rank-phase", rank_out, work / "rank.log"), rank_out),
+             "14c": (child("--nccl-phase", nccl_out, work / "nccl.log"), nccl_out)}
+    rc = cells.wait()
+    check(rc == 0, f"14a exited {rc}: " + (work / "cells.log").read_text()[-3000:])
+    a = json.loads(cells_out.read_text())
+    out: dict = {"cells": {}, "cells_seconds": a["seconds"],
+                 "cells_finished_after_s": time.perf_counter() - started}
+    for r in a["cells"]:
+        key = f"{r['arch']}|{r['shape']}|{r['mesh']}"
+        check(r.get("ok"), f"14a {key}: {r.get('error')}")
+        rec = r["records"][0]
+        out["cells"][key] = rec
+        print(f"dryrun 14a {key}: trace {rec['compile_s']} s, flops {rec['flops']:.4g} per "
+              f"device ({rec['flops_global']:.4g} global), bytes {rec['bytes_accessed']:.4g}, "
+              f"memory {json.dumps(rec['memory'])}, collectives "
+              f"{json.dumps({k: v for k, v in rec['collectives'].items() if v['count']})}, "
+              f"reshards {rec['reshards']}, replicated {rec['replicated']}", flush=True)
+    for m, want in COSMOS_ARG_BYTES.items():
+        got = out["cells"][f"cosmosann|query|{m}"]["memory"]["argument_size_in_bytes"]
+        check(got == want, f"14a cosmosann {m}: argument bytes {got} != {want}")
+    res = {}
+    for name, (p, path) in procs.items():
+        rc = p.wait(timeout=DRYRUN_BUDGET_S * 3)
+        log = path.with_suffix(".log").read_text()
+        check(rc == 0, f"{name} exited {rc}: {log[-3000:]}")
+        res[name] = json.loads(path.read_text())
+    b, c = res["14b"], res["14c"]
+    for what, key, cell in (("cosmosann", "cosmosann", "cosmosann|query|single"),
+                            ("smollm decode", "smollm_decode", "smollm-135m|decode_32k|single")):
+        mem = out["cells"][cell]["memory"]
+        want = (mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
+                + mem["temp_size_in_bytes"])
+        got = b[key]["peak_bytes"]
+        b[key]["dryrun_bytes"] = want
+        print(f"dryrun 14b {what}: p50 {b[key]['p50_ms']:.3f} ms, p95 {b[key]['p95_ms']:.3f} ms, "
+              f"peak {got / 2**20:.1f} MiB against the dry-run's {want / 2**20:.1f} MiB",
+              flush=True)
+        check(abs(got - want) <= RANK_PEAK_REL * want,
+              f"14b {what}: peak {got} bytes against the dry-run's {want}")
+    cb = b["cosmosann"]
+    print(f"dryrun 14b: cuBLAS's workspace {b['cublas_workspace_bytes']} bytes, below the "
+          f"baseline", flush=True)
+    print(f"dryrun 14b cosmosann: {cb['rows']} rows, partial equal to the mesh-free call: "
+          f"{cb['partial_equal']}, launches {json.dumps(cb['launches'])}", flush=True)
+    check(cb["partial_equal"], "14b: the rank's partial differs from the mesh-free search")
+    for form in RANK_FORMS:
+        check(cb["launches"].get(form, 0) > 0, f"14b: {form} did not launch")
+    # (values are not checked here: the fake group's collectives return
+    # uninitialised buffers; 14c and the CPU tests hold the values)
+    print(f"dryrun 14c: {json.dumps(c)}", flush=True)
+    tr = c["train"]
+    check(tr["loss_rel_err"] <= MESH_LOSS_REL, f"14c: loss {tr}")
+    check(tr["param_worst_rel"] <= MESH_PARAM_REL and tr["near_zero_max_move_over_lr"] <= 2.0,
+          f"14c: parameters {tr}")
+    check(c["search"]["equal"], "14c: distributed_search_fn on the mesh differs")
+    out.update(rank=b, nccl=c, seconds=time.perf_counter() - t_phase)
+    print(f"phase 14: {out['seconds']:.1f} s (budget {DRYRUN_BUDGET_S:.0f} s); 14a's traces "
+          f"{a['seconds']:.1f} s in their own process, from the start of the run", flush=True)
+    check(out["seconds"] <= DRYRUN_BUDGET_S,
+          f"phase 14 took {out['seconds']:.1f} s > {DRYRUN_BUDGET_S} s")
+    return out
+
+
 def rec_at(np, responses, truth, k: int) -> float:
     from repro_torch.core import recall as rec
 
@@ -3434,6 +3763,13 @@ def run(args) -> int:
     check(torch.backends.cuda.matmul.allow_tf32 is False, "float32 matmuls must not use TF32")
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+
+    # 14a runs on the host from the start, beside the card's phases
+    work14 = ROOT / "build" / "dryrun_phase"
+    work14.mkdir(parents=True, exist_ok=True)
+    started = time.perf_counter()
+    cells = None if args.only_kernels else child("--dryrun-cells", work14 / "cells.json",
+                                                 work14 / "cells.log")
 
     # 2. build
     _build.library()
@@ -3563,6 +3899,12 @@ def run(args) -> int:
                         Path(args.out).parent if args.profile else None)
     for entry in line["kernels"]:
         entry["launches_train"] = 0
+    # 14. the dry-run's cells, one rank of the 16 x 16 mesh, a real group
+    dry = dryrun_phase(torch, work14, cells, work14 / "cells.json", started)
+    for entry in line["kernels"]:
+        n = dry["rank"]["cosmosann"]["launches"].get(entry["name"], 0)
+        entry["launches_mesh_rank"] = n
+        entry["launches"] += n
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(kernels=line["kernels"], main_path=path,
@@ -3571,6 +3913,7 @@ def run(args) -> int:
                                                   updates=updates, collection=collection,
                                                   serve=serve, lm=lm,
                                                   lm_moe_ssm=lm_moe_ssm, train=train,
+                                                  dryrun=dry,
                                                   card=card,
                                                   launch_floor_ms=floor_ms),
                                              indent=1))
@@ -3595,7 +3938,14 @@ def main() -> int:
                          "earlier commit), in turns with this tree's")
     ap.add_argument("--wide-tree", default="", help=argparse.SUPPRESS)  # one turn of --wide-parent
     ap.add_argument("--wide-state", default="", help=argparse.SUPPRESS)
-    return run(ap.parse_args())
+    for flag in ("--dryrun-cells", "--rank-phase", "--nccl-phase"):  # phase 14's processes
+        ap.add_argument(flag, default="", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    for flag, fn in (("dryrun_cells", dryrun_cells), ("rank_phase", rank_phase),
+                     ("nccl_phase", nccl_phase)):
+        if getattr(args, flag):
+            return fn(Path(getattr(args, flag)))
+    return run(args)
 
 
 if __name__ == "__main__":

@@ -135,7 +135,9 @@ def batch_greedy_search(
     """Lockstep greedy search for a query batch (the reference's vmapped
     ``greedy_search``), one round per loop iteration. A start per lane lets
     lanes of different graphs share the rounds: the graphs stacked into one
-    array, each lane starting at its own graph's entry point."""
+    array, each lane starting at its own graph's entry point. Fake inputs
+    (a dry-run's trace) run exactly ``max_hops`` rounds, without the
+    per-round sync that ends the loop once no lane is active."""
     W = int(beam_width)
     if not 1 <= W <= L:
         raise ValueError(f"beam_width {W} must be in [1, L={L}]")
@@ -170,10 +172,11 @@ def batch_greedy_search(
     exp = torch.zeros((B,), dtype=torch.int32, device=dev)
     cmps = torch.ones((B,), dtype=torch.int32, device=dev)
     rows = torch.arange(B, device=dev)[:, None]
+    fixed_rounds = _is_fake(luts)
 
-    while True:
+    for rnd in range(max_hops + 1):
         active = ((~expanded) & (ids >= 0)).any(1) & (hops < max_hops)
-        if not bool(active.any()):
+        if rnd == max_hops or (not fixed_rounds and not bool(active.any())):
             break
         p_pos, p_valid = frontier_topw(ids, dists, expanded, W)
         p_valid &= active[:, None]  # a frozen lane expands nothing
@@ -217,6 +220,11 @@ def batch_greedy_search(
         visited_dists=visited_dists[:, :visited_cap].contiguous(),
         n_hops=hops, n_exp=exp, n_cmps=cmps,
     )
+
+
+def _is_fake(t: torch.Tensor) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
 
 
 def jit_cache_size() -> int:

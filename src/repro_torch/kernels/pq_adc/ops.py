@@ -1,11 +1,12 @@
-"""Wrapper of the pq_adc kernels: plain version for CPU tensors, a CUDA kernel otherwise."""
+"""Wrapper of the pq_adc kernels: plain version for CPU tensors, a CUDA kernel
+otherwise, through the ``repro_torch::pq_adc`` operator (``kernels._ops``)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
-from .. import _build
+from .. import _build, _ops
 from .ref import pq_adc_ref
 
 SMEM_PER_BLOCK = 232_448  # Hopper's opt-in shared memory per block (H100, H200)
@@ -101,8 +102,14 @@ def pq_adc(luts: torch.Tensor, codes: torch.Tensor, versions: torch.Tensor,
         raise TypeError("pq_adc: luts f32, codes u8, versions u8")
     if ids is not None and (ids.dim() != 2 or ids.shape[0] != B or ids.dtype != torch.int32):
         raise ValueError("pq_adc: ids must be (B, C) int32")
-    if luts.device.type == "cpu":
-        return pq_adc_ref(luts, codes, versions, ids)
+    return _OP(luts, codes, versions, ids)
+
+
+def _launch(luts: torch.Tensor, codes: torch.Tensor, versions: torch.Tensor,
+            ids: Optional[torch.Tensor]) -> torch.Tensor:
+    """The CUDA implementation: one launch of the form the shape picks."""
+    B, V, M, K = luts.shape
+    N = codes.shape[0]
     tensors = (luts, codes, versions) + ((ids,) if ids is not None else ())
     _build.check_cuda("pq_adc", *tensors)
     C = N if ids is None else ids.shape[1]
@@ -121,6 +128,19 @@ def pq_adc(luts: torch.Tensor, codes: torch.Tensor, versions: torch.Tensor,
     return out
 
 
+def _fake(luts, codes, versions, ids):
+    C = codes.shape[0] if ids is None else ids.shape[1]
+    return luts.new_empty((luts.shape[0], C))
+
+
+def _flops(luts, codes, versions, ids, out_val=None) -> int:
+    """One addition per subspace for each (query, row): B·C·M (the bound
+    counts the rows with a valid id; a fake tensor cannot tell them)."""
+    return out_val.shape[0] * out_val.shape[1] * luts.shape[2]
+
+
+_OP = _ops.define("pq_adc", "(Tensor luts, Tensor codes, Tensor versions, Tensor? ids) -> Tensor",
+                  pq_adc_ref, _launch, _fake, _flops)
 pq_adc.gathered_launches = 0
 pq_adc.gathered_l2_launches = 0
 pq_adc.dense_launches = 0

@@ -1,9 +1,11 @@
-"""Wrapper of the pq_encode kernel: plain version for CPU tensors, the CUDA kernel otherwise."""
+"""Wrapper of the pq_encode kernel: plain version for CPU tensors, the CUDA
+kernel otherwise, through the ``repro_torch::pq_encode`` operator
+(``kernels._ops``)."""
 from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, _ops
 from .ref import pq_encode_ref
 
 MAX_DSUB = 32  # the kernel keeps one row's subvector in registers
@@ -20,10 +22,15 @@ def pq_encode(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"pq_encode: D={D} != M*dsub={M}*{dsub} or K={K} > 256")
     if x.dtype != torch.float32 or codebooks.dtype != torch.float32:
         raise TypeError("pq_encode: x and codebooks float32")
-    if x.device.type == "cpu":
-        return pq_encode_ref(x, codebooks)
-    if dsub > MAX_DSUB:
+    if x.device.type == "cuda" and dsub > MAX_DSUB:
         raise ValueError(f"pq_encode: dsub={dsub} > {MAX_DSUB}")
+    return _OP(x, codebooks)
+
+
+def _launch(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """The CUDA implementation."""
+    N = x.shape[0]
+    M, K, dsub = codebooks.shape
     _build.check_cuda("pq_encode", x, codebooks)
     codes = torch.empty((N, M), dtype=torch.uint8, device=x.device)
     if N == 0:
@@ -36,5 +43,17 @@ def pq_encode(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     return codes
 
 
+def _fake(x, codebooks):
+    return x.new_empty((x.shape[0], codebooks.shape[0]), dtype=torch.uint8)
+
+
+def _flops(x, codebooks, out_val=None) -> int:
+    """A product and a sum per centroid coordinate: N·M·K·2·dsub."""
+    M, K, dsub = codebooks.shape
+    return x.shape[0] * M * K * 2 * dsub
+
+
+_OP = _ops.define("pq_encode", "(Tensor x, Tensor codebooks) -> Tensor",
+                  pq_encode_ref, _launch, _fake, _flops)
 pq_encode.launches = 0
 pq_encode.launches_by_rows = {}

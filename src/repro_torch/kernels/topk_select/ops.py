@@ -1,11 +1,13 @@
-"""Wrapper of the topk_select kernels: plain version for CPU tensors, the CUDA kernels otherwise."""
+"""Wrapper of the topk_select kernels: plain version for CPU tensors, the CUDA
+kernels otherwise, through the ``repro_torch::topk_select`` operator
+(``kernels._ops``)."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from .. import _build
+from .. import _build, _ops
 from .ref import topk_select_ref
 
 RANK_MAX_N = 1024  # kRankMaxN in kernel.cu: longer rows take the long form
@@ -104,8 +106,13 @@ def topk_select(dists: torch.Tensor, L: int, mark_nonfinite: bool = False
     B, N = dists.shape
     if not 0 < L <= N:
         raise ValueError(f"topk_select: need 0 < L={L} <= N={N}")
-    if dists.device.type == "cpu":
-        return topk_select_ref(dists, L, mark_nonfinite)
+    return _OP(dists, L, mark_nonfinite)
+
+
+def _launch(dists: torch.Tensor, L: int, mark_nonfinite: bool
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA implementation: the form the shape picks."""
+    B, N = dists.shape
     _build.check_cuda("topk_select", dists)
     vals = torch.empty((B, L), dtype=torch.float32, device=dists.device)
     idx = torch.empty((B, L), dtype=torch.int32, device=dists.device)
@@ -129,6 +136,18 @@ def topk_select(dists: torch.Tensor, L: int, mark_nonfinite: bool = False
     return vals, idx
 
 
+def _fake(dists, L, mark_nonfinite):
+    B = dists.shape[0]
+    return dists.new_empty((B, L)), dists.new_empty((B, L), dtype=torch.int32)
+
+
+def _flops(dists, L, mark_nonfinite, out_val=None) -> int:
+    """One comparison per key: B·N."""
+    return dists.shape[0] * dists.shape[1]
+
+
+_OP = _ops.define("topk_select", "(Tensor dists, int L, bool mark_nonfinite) -> (Tensor, Tensor)",
+                  topk_select_ref, _launch, _fake, _flops)
 topk_select.rank_launches = 0
 topk_select.long_launches = 0
 topk_select.sort_launches = 0

@@ -1,7 +1,12 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch smollm-135m``
 (the port of ``repro.launch.train``).
 
-Runs real steps on the CUDA card unless ``--device cpu`` is given.
+Runs real steps on the CUDA card unless ``--device cpu`` is given. Under a
+running process group of more than one rank it trains on
+``make_host_mesh()``, a data mesh over the group's ranks: the state
+sharded by the step factory's specs and a checkpoint restored onto them.
+Otherwise (one card) it takes the mesh-free step: a one-rank mesh shards
+nothing, and its DTensor dispatch would only slow each step down.
 Fault-tolerance wired in: checkpoint every N steps (atomic manifests, the
 reference's on-disk format), auto-resume from the newest complete
 checkpoint, deterministic data cursor. A checkpoint of the reference's
@@ -13,6 +18,7 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..configs import get_config, get_smoke_config
 from ..configs.shapes import ShapeSpec, input_specs
@@ -22,6 +28,7 @@ from ..models.config import ModelConfig
 from ..train import checkpoint as ckpt
 from ..train.data import SyntheticStream
 from ..train.optimizer import OptConfig
+from .mesh import make_host_mesh
 
 
 def train(
@@ -39,17 +46,20 @@ def train(
     device: DeviceLike = None,
 ) -> dict:
     dev = resolve_device(device)
+    sharded = dist.is_initialized() and dist.get_world_size() > 1
+    mesh = make_host_mesh(device=dev) if sharded else None
     opt_cfg = OptConfig(lr=lr, warmup_steps=max(steps // 10, 1), total_steps=steps)
 
     spec = ShapeSpec("train", seq_len, global_batch, "train")
-    bundle = steps_mod.make_train_step(cfg, input_specs(cfg, spec), opt_cfg, remat=remat,
+    bundle = steps_mod.make_train_step(cfg, mesh, input_specs(cfg, spec), opt_cfg, remat=remat,
                                        device=dev)
 
     stream = SyntheticStream(cfg, global_batch, seq_len)
     state = bundle.init()
     start_step = 0
     if ckpt_dir and resume and (ckpt.latest_step(ckpt_dir) is not None):
-        tree, extra = ckpt.restore(ckpt_dir, steps_mod.state_tree(state, cfg))
+        tree, extra = ckpt.restore(ckpt_dir, steps_mod.state_tree(state, cfg),
+                                   shardings=bundle.arg_shardings and bundle.arg_shardings[0])
         state = steps_mod.load_state_tree(state, cfg, tree)
         start_step = extra["step"]
         stream.restore(extra["data"])

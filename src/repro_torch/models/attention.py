@@ -13,8 +13,14 @@ attention call is used: it rounds differently.
 
 The port writes a KV cache in place (the reference returns an updated
 copy) and returns it, so a caller keeps using the returned cache as it
-would the reference's. The sequence-sharded caches and context-parallel
-constraints of the reference need a mesh and have no counterpart here.
+would the reference's. On a mesh the cache is a DTensor sharded on its
+sequence dim (``models.sharding.cache_specs``): ``sharding.write_at``
+writes each rank's positions. Training and prefill attend on each rank's
+shards (``sharding.local_attention``): the batch over the data axes, the
+kv heads over ``model`` where they divide, else the queries' sequence
+(the reference's ``_cp_constrain``); a decode step attends in the
+split-KV form against the sequence-sharded cache
+(``sharding.split_kv_attention``), which gathers no cache.
 
 MLA (DeepSeek-V2) has the same three entry points. Prefill and train run
 the naive form (k_nope and v expanded per head); decode runs the *absorbed*
@@ -32,6 +38,9 @@ import torch
 
 from .config import MLAConfig, ModelConfig
 from .layers import apply_rope, dense_init, rmsnorm, rmsnorm_init
+from torch.distributed.tensor import DTensor
+
+from .sharding import local_attention, local_heads, split_kv_attention, write_at
 
 NEG_INF = -1e30
 
@@ -76,7 +85,15 @@ def _qkv(params, cfg: ModelConfig, x, positions):
 
 def _attend(qg, k, v, mask: Optional[torch.Tensor], Dh: int):
     """qg (B,Sq,Hkv,G,Dh) against k, v (B,Sk,Hkv,Dh), where ``mask`` (None:
-    every key) broadcasts to (B,Hkv,G,Sq,Sk) → (B,Sq,Hkv,G,Dh) in q's dtype."""
+    every key) broadcasts to (B,Hkv,G,Sq,Sk) → (B,Sq,Hkv,G,Dh) in q's dtype.
+    Sharded queries of more than one position (train, prefill) attend on
+    each rank's shards (``sharding.local_attention``); a decode step's
+    query against a sequence-sharded cache takes the split-KV form
+    (``sharding.split_kv_attention``)."""
+    if isinstance(qg, DTensor):
+        if qg.shape[1] > 1:
+            return local_attention(_attend, qg, k, v, mask, Dh)
+        return split_kv_attention(qg, k, v, mask, Dh, NEG_INF)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float()
     scores = scores / math.sqrt(Dh)
     if mask is not None:
@@ -120,8 +137,8 @@ def gqa_prefill(params, cfg: ModelConfig, x, positions, cache: KVCache):
     """Causal attention over the prompt; writes its k, v into cache[:, :S]."""
     q, k, v = _qkv(params, cfg, x, positions)
     S = x.shape[1]
-    cache.k[:, :S] = k.to(cache.k.dtype)
-    cache.v[:, :S] = v.to(cache.v.dtype)
+    write_at(cache.k, 0, k.to(cache.k.dtype))
+    write_at(cache.v, 0, v.to(cache.v.dtype))
     out = _sdpa(q, k, v, cfg.num_heads, cfg.num_kv_heads, causal=True,
                 q_chunk=cfg.attn_q_chunk)
     return out @ params["wo"], cache
@@ -138,8 +155,8 @@ def gqa_decode(params, cfg: ModelConfig, x, cache: KVCache, cache_len: int):
     pos = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(params, cfg, x, pos)
     at = min(max(cache_len, 0), S_max - 1)
-    cache.k[:, at:at + 1] = k.to(cache.k.dtype)
-    cache.v[:, at:at + 1] = v.to(cache.v.dtype)
+    write_at(cache.k, at, k.to(cache.k.dtype))
+    write_at(cache.v, at, v.to(cache.v.dtype))
     qg = q.reshape(B, 1, Hkv, H // Hkv, Dh)
     valid = torch.arange(S_max, device=x.device) <= cache_len  # includes the new token
     out = _attend(qg, cache.k.to(q.dtype), cache.v.to(q.dtype), valid, Dh)
@@ -187,7 +204,11 @@ def _mla_kv(params, cfg: ModelConfig, x, positions):
 
 
 def _mla_attend(q_nope, q_rope, k_nope, k_rope, v, m: MLAConfig, q_offset: int, dtype):
-    """One query block of MLA attention: (B,Sq,H,·) against every key."""
+    """One query block of MLA attention: (B,Sq,H,·) against every key;
+    sharded tensors attend on each rank's shards (``sharding.local_heads``)."""
+    if isinstance(q_nope, DTensor):
+        return local_heads(_mla_attend, [q_nope, q_rope], [k_nope, k_rope, v], m, q_offset,
+                           dtype)
     Sq, Sk = q_nope.shape[1], k_nope.shape[1]
     scores = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
               + torch.einsum("bqhd,bkxd->bhqk", q_rope, k_rope)).float() * _mla_scale(m)
@@ -225,7 +246,7 @@ def mla_prefill(params, cfg: ModelConfig, x, positions, cache: KVCache):
     attends in the naive form."""
     c_kv, k_rope = _mla_kv(params, cfg, x, positions)
     S = x.shape[1]
-    cache.k[:, :S] = torch.cat([c_kv, k_rope[:, :, 0, :]], dim=-1).to(cache.k.dtype)
+    write_at(cache.k, 0, torch.cat([c_kv, k_rope[:, :, 0, :]], dim=-1).to(cache.k.dtype))
     return mla_train(params, cfg, x, positions), cache
 
 
@@ -243,7 +264,7 @@ def mla_decode(params, cfg: ModelConfig, x, cache: KVCache, cache_len: int):
     q_nope, q_rope = _mla_q(params, cfg, x, pos)  # (B,1,H,dn), (B,1,H,dr)
     c_new, r_new = _mla_kv(params, cfg, x, pos)
     at = min(max(cache_len, 0), S_max - 1)
-    cache.k[:, at:at + 1] = torch.cat([c_new, r_new[:, :, 0, :]], dim=-1).to(cache.k.dtype)
+    write_at(cache.k, at, torch.cat([c_new, r_new[:, :, 0, :]], dim=-1).to(cache.k.dtype))
     c_all = cache.k[..., :r].to(x.dtype)  # (B,S,r)
     r_all = cache.k[..., r:].to(x.dtype)  # (B,S,dr)
 

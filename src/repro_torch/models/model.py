@@ -17,9 +17,11 @@ reference's three remat modes per layer (``_remat_wrap``); ``prefill`` and
 ``decode_step`` run under ``torch.no_grad``, so serving builds no graph.
 ``reference_tree`` stacks per-layer tensors (parameters, gradients,
 optimizer moments) back into the reference's pytree, and
-``load_reference_tree`` copies such a tree into them.
-``constrain_batch_dim`` shards over a mesh and is a no-op without one, so
-it is dropped. As in the reference, token ids must lie in [0, vocab):
+``load_reference_tree`` copies such a tree into them. On a mesh the
+parameters are DTensors (``models.steps``) and ``constrain_batch_dim``
+pins the activations' batch dim to the data axes at the reference's
+places: after the embedding and after every layer; without a mesh it is a
+no-op. As in the reference, token ids must lie in [0, vocab):
 JAX clamps an out-of-range id where torch raises; the engine only feeds
 ids the model emitted or the caller gave in range.
 
@@ -38,6 +40,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -49,6 +52,7 @@ from .config import ModelConfig
 from .layers import (dtype_of, embed_init, mlp_apply, mlp_init, param_dict, rmsnorm,
                      rmsnorm_init)
 from .moe import moe_apply, moe_init
+from .sharding import constrain_batch_dim, vocab_parallel_embedding, vocab_parallel_xent
 
 Cache = Union[KVCache, dict]  # a segment's decode state: KV stacks or SSM states
 
@@ -247,12 +251,20 @@ def _from_numpy(a, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(dev)
 
 
+def _lookup(embed: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """embed[tok]; a sharded embedding (a DTensor) through
+    ``sharding.vocab_parallel_embedding``, which keeps the vocab sharded."""
+    if isinstance(embed, DTensor):
+        return vocab_parallel_embedding(tok, embed)
+    return embed[tok]
+
+
 def _embed_inputs(model: Model, cfg: ModelConfig, batch: dict):
     """Returns (x (B,S,dm), positions (B,S), target_mask (B,S))."""
     cd = dtype_of(cfg.compute_dtype)
     if cfg.input_mode == "tokens":
         tok = batch["tokens"]
-        x = model.embed[tok].to(cd)
+        x = _lookup(model.embed, tok).to(cd)
         B, S = tok.shape
         pos = torch.arange(S, device=x.device).expand(B, S)
         return x, pos, torch.ones((B, S), dtype=torch.bool, device=x.device)
@@ -264,7 +276,7 @@ def _embed_inputs(model: Model, cfg: ModelConfig, batch: dict):
     # vlm: image embeddings prepended to token embeddings
     img = batch["image_embeds"].to(cd)  # (B, Ni, dm)
     tok = batch["tokens"]
-    x = torch.cat([img, model.embed[tok].to(cd)], dim=1)
+    x = torch.cat([img, _lookup(model.embed, tok).to(cd)], dim=1)
     B, S = x.shape[:2]
     pos = torch.arange(S, device=x.device).expand(B, S)
     mask = torch.cat([torch.zeros((B, img.shape[1]), dtype=torch.bool, device=x.device),
@@ -309,9 +321,11 @@ def _run_blocks_train(model: Model, cfg: ModelConfig, x, positions, remat="full"
     """Every layer in order (the reference scans each segment); returns (x,
     the MoE aux summed over layers, f32)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = constrain_batch_dim(x)
     for blk in model.blocks:
         f = _remat_wrap(functools.partial(block_train, blk, cfg, blk.kind), remat)
         x, a = f(x, positions)
+        x = constrain_batch_dim(x)
         aux_total = aux_total + a
     return x, aux_total
 
@@ -327,9 +341,10 @@ def forward_train(model: Model, cfg: ModelConfig, batch: dict, remat="full"):
 
 def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean CE. The target logit is gathered where the reference contracts
-    a one-hot over the vocab (a choice for its vocab-sharded logits, which
-    this port does not shard): with finite logits both give the same value,
-    a sum of zeros and one term being exact."""
+    a one-hot over the vocab (a choice for its vocab-sharded logits): with
+    finite logits both give the same value, a sum of zeros and one term
+    being exact. Sharded logits (a DTensor) take
+    ``sharding.vocab_parallel_xent`` in ``loss_fn``."""
     lse = torch.logsumexp(logits, dim=-1)
     tgt_logit = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     return (lse - tgt_logit).mean()
@@ -340,11 +355,16 @@ def loss_fn(model: Model, cfg: ModelConfig, batch: dict, remat="full"):
     nothing); frame classification against ``labels`` for encoders.
     Returns (loss + 0.01·aux, (ce, aux))."""
     logits, mask, aux = forward_train(model, cfg, batch, remat)
+    sharded = isinstance(logits, DTensor)
     if cfg.causal:
         targets = batch["tokens"]
-        if cfg.input_mode == "vlm":
-            logits = logits[:, batch["image_embeds"].shape[1]:, :]
-        loss = _xent(logits[:, :-1], targets[:, 1:])
+        start = batch["image_embeds"].shape[1] if cfg.input_mode == "vlm" else 0
+        if sharded:
+            loss = vocab_parallel_xent(logits, targets, start=start, shift=1)
+        else:
+            loss = _xent(logits[:, start:][:, :-1], targets[:, 1:])
+    elif sharded:
+        loss = vocab_parallel_xent(logits, batch["labels"])
     else:
         loss = _xent(logits, batch["labels"])
     return loss + 0.01 * aux, (loss, aux)
@@ -403,7 +423,7 @@ def load_reference_tree(model: Model, cfg: ModelConfig, tree: dict,
     """Copy a reference-keyed ``tree`` (as ``reference_tree`` gives, on any
     device, or the reference's numpy leaves) into ``targets`` (tensors in
     ``model.parameters()`` order, default the parameters), in place and in
-    each target's dtype."""
+    each target's dtype; a DTensor target takes its shard of the leaf."""
     targets = list(model.parameters()) if targets is None else targets
     leaves: dict = {}  # each numpy leaf converted once, not once a layer
     with torch.no_grad():
@@ -413,7 +433,11 @@ def load_reference_tree(model: Model, cfg: ModelConfig, tree: dict,
                 if path not in leaves:
                     leaves[path] = _from_numpy(leaf, t.device)
                 leaf = leaves[path]
-            t.copy_(leaf if j is None else leaf[j])
+            src = leaf if j is None else leaf[j]
+            if isinstance(t, DTensor):  # a sharded parameter: the source on its placements
+                src = (src.redistribute(t.device_mesh, t.placements) if isinstance(src, DTensor)
+                       else distribute_tensor(src.to(t.device), t.device_mesh, t.placements))
+            t.copy_(src)
 
 
 def _put(tree, path: tuple, leaf) -> None:
@@ -512,8 +536,10 @@ def prefill(model: Model, cfg: ModelConfig, batch: dict, cache: list[Cache]):
     cache with the prompt's keys and values, or its SSM states, written).
     An SSM prompt must be a multiple of its chunk (or shorter than one)."""
     x, pos, _ = _embed_inputs(model, cfg, batch)
+    x = constrain_batch_dim(x)
     for blk, c in zip(model.blocks, _layer_caches(cfg, cache)):
         x, _ = block_prefill(blk, cfg, blk.kind, x, pos, c)
+        x = constrain_batch_dim(x)
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
     return _logits(model, cfg, x[:, -1:, :]), cache
 
@@ -526,11 +552,13 @@ def decode_step(model: Model, cfg: ModelConfig, tokens, cache: list[Cache], cach
     written)."""
     cd = dtype_of(cfg.compute_dtype)
     if cfg.input_mode in ("tokens", "vlm"):
-        x = model.embed[tokens].to(cd)  # (B,1,dm)
+        x = _lookup(model.embed, tokens).to(cd)  # (B,1,dm)
     else:
         x = tokens.to(cd)
+    x = constrain_batch_dim(x)
     for blk, c in zip(model.blocks, _layer_caches(cfg, cache)):
         x, _ = block_decode(blk, cfg, blk.kind, x, c, cache_len)
+        x = constrain_batch_dim(x)
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
     return _logits(model, cfg, x), cache
 

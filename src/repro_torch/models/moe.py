@@ -79,9 +79,11 @@ def route(params, cfg: ModelConfig, xg: torch.Tensor, C: int) -> Routing:
 
     n, G = xg.shape[:2]
     slot = torch.arange(C, device=xg.device, dtype=torch.float32)
-    dispatch = torch.zeros((n, G, E, C), dtype=torch.float32, device=xg.device)
-    combine = torch.zeros_like(dispatch)
-    prev_count = torch.zeros((n, 1, E), dtype=torch.float32, device=xg.device)
+    # the sums start from the first route's terms (0 + t = t for these
+    # non-negative terms), and the counts from zeros shaped like the masks,
+    # so that on a mesh every (n, ...) tensor keeps the routes' sharding
+    dispatch = combine = None
+    prev_count = torch.zeros_like(masks[0][:, :1])  # (n,1,E)
     kept = []
     for j, m in enumerate(masks):
         pos = torch.cumsum(m, dim=1) - m + prev_count  # (n,G,E)
@@ -90,8 +92,9 @@ def route(params, cfg: ModelConfig, xg: torch.Tensor, C: int) -> Routing:
         # whole numbers)
         pos_oh = (pos[..., None] == slot).float()
         d_j = pos_oh * (fits.float() * m)[..., None]  # (n,G,E,C)
-        dispatch = dispatch + d_j
-        combine = combine + d_j * gates[..., j][:, :, None, None]
+        c_j = d_j * gates[..., j][:, :, None, None]
+        dispatch = d_j if dispatch is None else dispatch + d_j
+        combine = c_j if combine is None else combine + c_j
         prev_count = prev_count + m.sum(dim=1, keepdim=True)
         kept.append(fits.any(-1))
     return Routing(probs, torch.stack(idxs, -1), gates, torch.stack(kept, -1), dispatch,

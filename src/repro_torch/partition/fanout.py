@@ -25,7 +25,9 @@ Device paths, the counterparts of the reference's ``shard_map`` programs:
     to the serial per-partition loop; RU is metered on each partition's own
     meter and governor.
   * ``distributed_search_fn`` — the multi-pod dry-run's search step over
-    shard-stacked arrays, as one stacked search plus a ``topk_select`` merge.
+    shard-stacked arrays, as one stacked search plus a ``topk_select`` merge;
+    on a mesh each rank searches its shards and the partials are
+    all-gathered before the merge.
 """
 from __future__ import annotations
 
@@ -537,27 +539,38 @@ def _stack_graphs(neighbors: Sequence[torch.Tensor]) -> tuple[torch.Tensor, list
     return stacked, offsets
 
 
-def distributed_search_fn(*, L: int, k: int, metric: str = "l2", max_hops: int = 0,
+def distributed_search_fn(mesh=None, *, L: int, k: int, metric: str = "l2",
+                          shard_axes: tuple[str, ...] = ("data",), max_hops: int = 0,
                           beam_width: int = 1, device: DeviceLike = None):
-    """The cross-partition search step over shard-stacked index arrays, on
-    one card: the counterpart of the reference's ``shard_map`` program.
+    """The cross-partition search step over shard-stacked index arrays: the
+    counterpart of the reference's ``shard_map`` program.
 
     The returned fn takes (neighbors (S, n, R_slack), codes (S, n, M),
     versions (S, n), live (S, n), vectors (S, n, D), doc_ids (S, n), medoid
     (S,), codebooks (S, M, K, dsub), queries (B, D)), numpy or torch, and
-    returns (doc ids (B, k), dists (B, k)). The S shards run as one stacked
-    search; each reranks its beam's first 2k, and the (B, S·k) partials
-    merge through ``topk_select`` (ties to the lower index, as
-    ``lax.top_k``). As in the reference, each shard's LUTs come from its
-    version-0 codebooks only, so rows of a later schema are read through
-    the first schema's table (versions clamp to the one table)."""
-    dev = resolve_device(device)
+    returns (doc ids (B, k), dists (B, k)). Each shard is searched (its
+    shards as one stacked search), reranks its beam's first 2k, and the
+    (B, S·k) partials merge through ``topk_select`` (ties to the lower
+    index, as ``lax.top_k``). As in the reference, each shard's LUTs come
+    from its version-0 codebooks only, so rows of a later schema are read
+    through the first schema's table (versions clamp to the one table).
 
-    def fn(neighbors, codes, versions, live, vectors, doc_ids, medoid, codebooks, queries):
-        t = lambda a: torch.as_tensor(a).to(dev)
-        neighbors, codes, versions, live = t(neighbors), t(codes), t(versions), t(live)
-        vectors, doc_ids, codebooks = t(vectors), t(doc_ids), t(codebooks)
-        medoid, q = t(medoid), t(queries).float().contiguous()
+    Without a mesh every shard runs on one card (``device``). With a mesh
+    (a ``DeviceMesh``; S a multiple of the ranks of ``shard_axes``) each
+    rank takes its S / ranks shards — the local shards of DTensors sharded
+    on dim 0 over ``shard_axes``, or its slice of whole arrays, shard
+    ``c0·n1 + c1`` for coordinates (c0, c1) on the axes in order — and the
+    (S_local, B, k) partials are all-gathered over each axis of
+    ``shard_axes`` in turn, the reference's order (the last axis gathered
+    outermost), before the merge; the queries are replicated. ``fn(...,
+    return_partials=True)`` also returns this rank's partials (doc ids,
+    dists), each (S_local, B, k)."""
+    dev = _mesh_device(mesh) if mesh is not None else resolve_device(device)
+    if mesh is not None:
+        names = tuple(mesh.mesh_dim_names)
+        dims = [names.index(a) for a in shard_axes]
+
+    def partials(neighbors, codes, versions, live, vectors, doc_ids, medoid, codebooks, q):
         S, n = neighbors.shape[:2]
         B = q.shape[0]
         nb, offsets = _stack_graphs(list(neighbors.to(torch.int32)))
@@ -575,13 +588,63 @@ def distributed_search_fn(*, L: int, k: int, metric: str = "l2", max_hops: int =
         docs = doc_ids.reshape(-1)
         gdoc = torch.where(lids >= 0, docs[lids.long().clamp(min=0)], -1)
         gd = torch.where(lids >= 0, ldists, INF)
+        return gdoc.reshape(S, B, k), gd.reshape(S, B, k)
+
+    def merge(all_ids, all_d):
         # (S, B, k) -> (B, S·k) -> top-k
-        flat_d = gd.reshape(S, B, k).permute(1, 0, 2).reshape(B, S * k).contiguous()
-        flat_i = gdoc.reshape(S, B, k).permute(1, 0, 2).reshape(B, S * k)
+        S, B = all_d.shape[:2]
+        flat_d = all_d.permute(1, 0, 2).reshape(B, S * k).contiguous()
+        flat_i = all_ids.permute(1, 0, 2).reshape(B, S * k)
         vals, pos = topk_select(flat_d, k)
         return flat_i.gather(1, pos.long()), vals
 
+    def fn(neighbors, codes, versions, live, vectors, doc_ids, medoid, codebooks, queries,
+           return_partials: bool = False):
+        arrays = (neighbors, codes, versions, live, vectors, doc_ids, medoid, codebooks)
+        if mesh is None:
+            arrays = [torch.as_tensor(a).to(dev) for a in arrays]
+        else:
+            arrays = [_local_shards(a, mesh, dims) for a in arrays]
+        q = _replicated_local(queries).to(dev).float().contiguous()
+        p_ids, p_d = partials(*arrays, q)
+        all_ids, all_d = p_ids, p_d
+        if mesh is not None:
+            import torch.distributed._functional_collectives as funcol
+            for d in dims:  # the reference's order: the last axis ends outermost
+                all_ids = funcol.all_gather_tensor(all_ids.contiguous(), 0, (mesh, d))
+                all_d = funcol.all_gather_tensor(all_d.contiguous(), 0, (mesh, d))
+        ids, dists = merge(all_ids, all_d)
+        return (ids, dists, (p_ids, p_d)) if return_partials else (ids, dists)
+
     return fn
+
+
+def _mesh_device(mesh) -> torch.device:
+    from ..launch.mesh import mesh_device
+    return mesh_device(mesh)
+
+
+def _replicated_local(a):
+    """A replicated DTensor's local tensor; anything else as a tensor."""
+    return a.to_local() if hasattr(a, "to_local") else torch.as_tensor(a)
+
+
+def _local_shards(a, mesh, dims: list[int]) -> torch.Tensor:
+    """This rank's shards of a shard-stacked array: a DTensor's local
+    tensor, or the slice of a whole array (shard c0·n1 + c1 … for the
+    rank's coordinates on ``dims``, the first outermost)."""
+    if hasattr(a, "to_local"):
+        return a.to_local()
+    a = torch.as_tensor(a)
+    coord = mesh.get_coordinate()
+    ways, idx = 1, 0
+    for d in dims:
+        ways *= mesh.size(d)
+        idx = idx * mesh.size(d) + coord[d]
+    if a.shape[0] % ways:
+        raise ValueError(f"{a.shape[0]} shards do not divide over {ways} ranks")
+    per = a.shape[0] // ways
+    return a[idx * per:(idx + 1) * per].to(_mesh_device(mesh))
 
 
 # the launch signatures the stacked fan-out has run (spmd_jit_cache_size)
@@ -629,7 +692,15 @@ class SpmdFanout:
     meter/governor exactly like ``PhysicalPartition.search_batch``.
     """
 
-    def __init__(self, device: DeviceLike = None):
+    def __init__(self, device: DeviceLike = None, mesh=None):
+        """On ``device`` (the card unless asked otherwise), or on the device
+        of ``mesh`` (the reference's argument), which must hold one rank:
+        the stacked fan-out across ranks is not ported yet."""
+        if mesh is not None:
+            if mesh.size() != 1:
+                raise ValueError(f"SpmdFanout runs on one rank; a mesh of {mesh.size()} ranks "
+                                 "is not supported")
+            device = _mesh_device(mesh)
         self.device = resolve_device(device)
         self._stack = None  # (stamp, the partitions, their stacked arrays)
 

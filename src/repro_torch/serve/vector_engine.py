@@ -43,7 +43,8 @@ The port of ``repro.serve.vector_engine``, line for line but in three places:
     vectors, and its page-tier mask stays a host array;
   * ``dispatch_mode="spmd"`` runs the port's ``SpmdFanout``: every
     partition in one stacked search on the collection's device (``device``
-    takes the place of the reference's ``spmd_mesh``);
+    takes the place of the reference's ``spmd_mesh``, which is accepted as
+    a mesh of one rank);
   * the port compiles nothing per shape, so where the reference counts
     compiled signatures (``serving_jit_cache_size``, the batch's
     ``jit_cache_trajectory``, "a compile stall" in the comments below), the
@@ -204,6 +205,7 @@ class VectorServeEngine:
         replica_sets: Optional[Sequence] = None,  # partition.ReplicaSet list
         device: DeviceLike = None,  # dispatch_mode="spmd"; None → the collection's
         policy: Optional[ControlPolicy] = None,  # None → from cfg.policy
+        spmd_mesh=None,  # or a DeviceMesh of one rank (SpmdFanout refuses a larger one)
     ):
         self.collection = collection
         self.cfg = cfg
@@ -240,6 +242,7 @@ class VectorServeEngine:
             on_lane_down=on_down, on_lane_up=on_up, on_lane_read=on_read,
         )
         self._spmd_device = device if device is not None else collection.device
+        self._spmd_mesh = spmd_mesh
         self._spmd_fanout: Optional[SpmdFanout] = None
         self.queue: list[ServeRequest] = []
         self._ingest_q: deque[tuple[str, Callable[[], float], int, Any]] = deque()
@@ -761,7 +764,8 @@ class VectorServeEngine:
 
     def _spmd(self) -> SpmdFanout:
         if self._spmd_fanout is None:
-            self._spmd_fanout = SpmdFanout(self._spmd_device)
+            self._spmd_fanout = (SpmdFanout(self._spmd_device) if self._spmd_mesh is None
+                                 else SpmdFanout(mesh=self._spmd_mesh))
         return self._spmd_fanout
 
     def _exact_scan(self, partitions, queries: np.ndarray, k: int,

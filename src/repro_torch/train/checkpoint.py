@@ -18,8 +18,12 @@ a '<V2' header, the raw 2-byte values, manifest dtype "bfloat16"; it is
 read back through a 16-bit integer view, so no ml_dtypes is needed. (The
 reference itself writes such leaves but cannot restore them: its
 ``np.load`` gives a '|V2' array, which ``jax.device_put`` refuses.)
-Sharding waits for the port's mesh decision: ``restore`` takes no
-``shardings``.
+``restore(..., shardings=...)`` puts each leaf on a mesh as a DTensor of
+the given placements (``models.sharding.Sharding``): the reference's
+elastic remesh, whatever mesh wrote the checkpoint (each rank reads the
+whole leaf and keeps its shard). Under a process group of more than one
+rank every rank calls ``save`` (a DTensor's whole value is a collective),
+rank 0 writes, and no rank returns before the checkpoint is in place.
 """
 from __future__ import annotations
 
@@ -31,20 +35,23 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
-def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
+def _flatten(tree: Any, prefix: str = "", leaf=lambda x: False) -> dict[str, Any]:
     out = {}
-    if isinstance(tree, dict):
+    if leaf(tree):
+        out[prefix] = tree
+    elif isinstance(tree, dict):
         for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+            out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k), leaf))
     elif isinstance(tree, (list, tuple)):
         if hasattr(tree, "_fields"):  # NamedTuple
             for k, v in zip(tree._fields, tree):
-                out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+                out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k), leaf))
         else:
             for i, v in enumerate(tree):
-                out.update(_flatten(v, f"{prefix}/{i}" if prefix else str(i)))
+                out.update(_flatten(v, f"{prefix}/{i}" if prefix else str(i), leaf))
     else:
         out[prefix] = tree
     return out
@@ -53,6 +60,8 @@ def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
 def _write(path: str, leaf) -> tuple[list, str]:
     """One leaf as an .npy; returns (shape, manifest dtype)."""
     if isinstance(leaf, torch.Tensor):
+        if hasattr(leaf, "full_tensor"):  # a DTensor: its whole value
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
             raw = t.contiguous().view(torch.int16).numpy()
@@ -76,6 +85,13 @@ def _read(path: str, dtype: str) -> torch.Tensor:
 
 def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None):
     """Write one checkpoint. Crash-safe: manifest lands last, atomically."""
+    group = dist.is_initialized() and dist.get_world_size() > 1
+    if group and dist.get_rank() != 0:  # its part of each gather; rank 0 writes
+        for leaf in _flatten(tree).values():
+            if hasattr(leaf, "full_tensor"):
+                leaf.full_tensor()
+        dist.barrier()
+        return
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = d + ".tmp"
     if os.path.exists(tmp):
@@ -93,6 +109,8 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None):
     if os.path.exists(d):
         shutil.rmtree(d)
     os.replace(tmp, d)
+    if group:
+        dist.barrier()
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -106,20 +124,28 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return best
 
 
-def restore(ckpt_dir: str, template: Any, step: Optional[int] = None) -> tuple[Any, dict]:
+def restore(ckpt_dir: str, template: Any, step: Optional[int] = None,
+            shardings: Any = None) -> tuple[Any, dict]:
     """Restore into ``template``'s structure (its leaves name the paths to
     read; their values are not used): (the tree with CPU tensors as leaves,
-    the manifest's ``extra``)."""
+    the manifest's ``extra``). ``shardings``: a tree keyed as the template
+    with a ``models.sharding.Sharding`` where a leaf goes onto a mesh, as a
+    DTensor of those placements (elastic remesh)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no complete checkpoint under {ckpt_dir}")
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
+    from ..models.sharding import Sharding, distribute  # models imports train: here, not above
+
+    flat_s = _flatten(shardings, leaf=lambda x: isinstance(x, Sharding)) if shardings else {}
     loaded = {}
     for path in _flatten(template):
         info = manifest["leaves"][path]
-        loaded[path] = _read(os.path.join(d, info["file"]), info["dtype"])
+        leaf = _read(os.path.join(d, info["file"]), info["dtype"])
+        sh = flat_s.get(path)
+        loaded[path] = distribute(leaf, sh) if isinstance(sh, Sharding) else leaf
 
     def rebuild(tree, prefix=""):
         if isinstance(tree, dict):

@@ -47,9 +47,10 @@ def _dt(name: str) -> torch.dtype:
 
 
 def init_opt_state(params: Sequence[torch.Tensor], cfg: OptConfig) -> OptState:
-    """Zero moments beside each parameter, on its device."""
-    m = [torch.zeros(p.shape, dtype=_dt(cfg.m_dtype), device=p.device) for p in params]
-    v = [torch.zeros(p.shape, dtype=_dt(cfg.v_dtype), device=p.device) for p in params]
+    """Zero moments beside each parameter, on its device (a DTensor
+    parameter's moments are DTensors of its placements)."""
+    m = [torch.zeros_like(p, dtype=_dt(cfg.m_dtype)) for p in params]
+    v = [torch.zeros_like(p, dtype=_dt(cfg.v_dtype)) for p in params]
     dev = params[0].device if params else None
     return OptState(m=m, v=v, step=torch.zeros((), dtype=torch.int32, device=dev))
 
@@ -64,8 +65,14 @@ def lr_schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum over every leaf of its squares, in f32."""
-    return torch.sqrt(torch.stack([g.float().square().sum() for g in grads]).sum())
+    """sqrt of the sum over every leaf of its squares, in f32. A sharded
+    leaf's (DTensor) sum is reduced over every rank first, so the norm is
+    the whole gradient's."""
+    return torch.sqrt(torch.stack([_full(g.float().square().sum()) for g in grads]).sum())
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
 @torch.no_grad()

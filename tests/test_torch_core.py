@@ -203,6 +203,32 @@ def test_greedy_search_bit_equal(graph_arrays, W, filtered):
     assert int(got.n_hops.max()) > 1
 
 
+
+@pytest.mark.parametrize("W", [1, 4])
+def test_fixed_round_search_equals_the_synced_loop(graph_arrays, W, monkeypatch):
+    """The round loop without its per-round sync (forced, as fake inputs
+    run it) runs exactly max_hops rounds and gives the synced loop's
+    result bit for bit: rounds past the last active lane change nothing.
+    Under FakeTensorMode the loop runs without a sync."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    ga = graph_arrays
+    rng = np.random.RandomState(7 + W)
+    luts = rng.randint(0, 16, (6, 2, M, 256)).astype(np.float32)
+    args = [t(ga[k]) for k in ("neighbors", "codes", "versions", "live")] + [t(luts)]
+    synced = tsearch.batch_greedy_search(*args, ga["medoid"], L=24, beam_width=W)
+    with monkeypatch.context() as m:  # the loop as it runs on fake inputs
+        m.setattr(tsearch, "_is_fake", lambda x: True)
+        fixed = tsearch.batch_greedy_search(*args, ga["medoid"], L=24, beam_width=W)
+    for name in synced._fields:
+        assert torch.equal(getattr(synced, name), getattr(fixed, name)), name
+    assert int(synced.n_hops.max()) < tsearch.default_max_hops(24, W)  # rounds to spare
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = tsearch.batch_greedy_search(*(mode.from_tensor(a) for a in args), ga["medoid"],
+                                           L=24, beam_width=W)
+    assert [tuple(a.shape) for a in fake] == [tuple(a.shape) for a in synced]
+
+
 def test_bucketing_and_candidates(graph_arrays):
     assert tsearch.next_bucket(3) == rsearch.next_bucket(3) == 4
     assert tsearch.next_bucket(130) == rsearch.next_bucket(130) == 192

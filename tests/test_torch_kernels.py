@@ -765,3 +765,52 @@ def test_topk_radix_plan(B, N, L):
     assert p["kernels"] == kernels_per_call(B, N, L) == 3 + p["passes"] + p["rounds"]
     held = p["passes"] * B * 2048 * 4 + B * 4 + 2 * B * 24 + B * p["cap"] * 8 * (1 + (p["runs"] > 1))
     assert held <= p["ws_bytes"] <= held + 32
+
+
+FAKE_CASES = {
+    "pq_adc gathered": lambda g: (K.pq_adc, (torch.rand(4, 2, 8, 256, generator=g),
+                                            torch.randint(0, 256, (50, 8), generator=g,
+                                                          dtype=torch.uint8),
+                                            torch.zeros(50, dtype=torch.uint8),
+                                            torch.randint(0, 50, (4, 13), generator=g,
+                                                          dtype=torch.int32))),
+    "pq_adc dense": lambda g: (K.pq_adc, (torch.rand(3, 1, 8, 256, generator=g),
+                                         torch.randint(0, 256, (70, 8), generator=g,
+                                                       dtype=torch.uint8),
+                                         torch.zeros(70, dtype=torch.uint8))),
+    "topk_select": lambda g: (K.topk_select, (torch.rand(5, 40, generator=g), 7)),
+    "flat_l2 f32": lambda g: (K.flat_l2, (torch.rand(3, 16, generator=g),
+                                         torch.rand(20, 16, generator=g))),
+    "flat_l2 bf16": lambda g: (K.flat_l2, (torch.rand(3, 16, generator=g).bfloat16(),
+                                          torch.rand(20, 16, generator=g).bfloat16(), "ip")),
+    "flat_l2_gathered": lambda g: (K.flat_l2_gathered,
+                                   (torch.rand(3, 16, generator=g), torch.rand(20, 16, generator=g),
+                                    torch.randint(0, 20, (3, 6), generator=g,
+                                                  dtype=torch.int32))),
+    "pq_encode": lambda g: (K.pq_encode, (torch.rand(11, 16, generator=g),
+                                          torch.rand(4, 16, 4, generator=g))),
+}
+
+
+@pytest.mark.parametrize("case", list(FAKE_CASES))
+def test_register_fake_gives_the_plain_versions_shapes(case):
+    """Every operator's fake implementation (what FakeTensorMode and the
+    dry-run see) gives the plain version's output shapes and dtypes, its
+    FLOP formula counts a positive number, and no kernel launches."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    fn, args = FAKE_CASES[case](torch.Generator().manual_seed(0))
+    want = fn(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    K.reset_launch_counts()
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake_args = tuple(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
+                          for a in args)
+        got = fn(*fake_args)
+    got = got if isinstance(got, tuple) else (got,)
+    assert [(tuple(g.shape), g.dtype) for g in got] == [(tuple(w.shape), w.dtype) for w in want]
+    assert not any(K.launch_counts().values())
+    with FlopCounterMode(display=False) as fc:
+        fn(*args)
+    assert fc.get_total_flops() > 0
