@@ -229,6 +229,25 @@ Phases, each printed on its own lines; any failure exits non-zero:
     ``distributed_search_fn`` over SEARCH_SHARDS seeded shards equal to its
     mesh-free call. (b) and (c) run side by side; phase 14 must take at
     most DRYRUN_BUDGET_S on the clock.
+15. phase 9's stacked fan-out across ranks, after phase 14: phase 9 wrote
+    its collection's plain state (before its fan-outs), its batches and its
+    stacked and serial results into ``build/spmd_phase/``. The collection is
+    loaded from that file here (``Collection.from_reference_state``, no
+    rebuild): phase 9's 8 batches of 128 through a one-rank ``SpmdFanout``
+    (equal to phase 9's bit for bit) and SPMD_SERVED of phase 10's queries
+    through a one-rank spmd engine. Then, for R in SPMD_RANKS (2, then 3:
+    4 partitions over 3 ranks pad to 6), R processes that share the card
+    over a gloo group (NCCL refuses two ranks on one device) each load the
+    file and run the same: ``SpmdFanout`` on ``make_serve_mesh()`` and
+    a spmd ``VectorServeEngine`` that takes that mesh by default. Every
+    rank's ids, dists, RU per partition, stats and ``failed_partitions``
+    must equal phase 9's one-rank stacked and serial results bit for bit
+    (``info["spmd"]`` naming R), its responses the one-rank engine's, and
+    it must launch every form of RANK_FORMS (counted from 0). Printed, not
+    gated: p50 / p95 ms a batch (the slowest rank's) against the one-rank
+    p50, launches per rank per batch, the card. Ranks sharing one card say
+    nothing of several cards' speed. A rank that fails or runs past the
+    phase's SPMD_RANKS_BUDGET_S fails the run.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -781,9 +800,15 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
     # the service's micro-batch (phase 10): a round of SERVE_BATCH lanes on one
     # partition's rows, and the stacked round of COLL_PARTS x SERVE_BATCH lanes
     serve_rounds = []
+    # and (phase 15) one rank's block of a multi-rank stacked call: its
+    # batch's and its micro-batch's lanes over the block's rows
+    rank_rounds = [(f"rank block round ({n} partitions)", n * 128, n * COLL_CAPACITY)
+                   for n in SPMD_BLOCKS] + [
+        (f"rank block serving round ({n} partitions)", n * SERVE_BATCH, n * COLL_CAPACITY)
+        for n in SPMD_BLOCKS]
     for what, nb, nr in (("serving round", SERVE_BATCH, COLL_CAPACITY),
                          ("stacked serving round", COLL_PARTS * SERVE_BATCH,
-                          COLL_PARTS * COLL_CAPACITY)):
+                          COLL_PARTS * COLL_CAPACITY), *rank_rounds):
         sl = torch.randn(nb, 1, M, Kc, generator=g, device=dev)
         sc = torch.randint(0, Kc, (nr, M), generator=g, device=dev, dtype=torch.uint8)
         sv = torch.zeros(nr, dtype=torch.uint8, device=dev)
@@ -916,6 +941,10 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
               ("serve_rerank", SERVE_BATCH, 50, 10, True),
               ("serve_stacked_merge", COLL_PARTS * SERVE_BATCH, 50 + C, 50, False),
               ("serve_exact", SERVE_BATCH, COLL_CAPACITY, 10, True)]
+    # one rank's block of a multi-rank stacked call (phase 15): its merges
+    shapes += [(f"rank_block_{n}_merge", n * 128, 100 + C, 100, False) for n in SPMD_BLOCKS]
+    shapes += [(f"rank_block_{n}_serve_merge", n * SERVE_BATCH, 50 + C, 50, False)
+               for n in SPMD_BLOCKS]
     # the launcher (phase 11a): its build's and its queries' cuts
     shapes += [(name, rows, n, L, False) for name, rows, n, L in LAUNCH_TOPK]
     for name, rows, n, L, mark in shapes:
@@ -1118,7 +1147,15 @@ def kernel_checks(torch, K, dev, N: int) -> dict:
                            dtype=torch.int32)),
             ("stacked serving rerank", q[:SERVE_BATCH].repeat(COLL_PARTS, 1), xs,
              torch.randint(0, COLL_PARTS * COLL_CAPACITY, (COLL_PARTS * SERVE_BATCH, 50),
-                           generator=g, device=dev, dtype=torch.int32))):
+                           generator=g, device=dev, dtype=torch.int32)),
+            # one rank's block of a multi-rank stacked call (phase 15)
+            *((f"rank block rerank ({n} partitions)", q.repeat(n, 1), xs[:n * COLL_CAPACITY],
+               torch.randint(0, n * COLL_CAPACITY, (n * B, 50), generator=g, device=dev,
+                             dtype=torch.int32)) for n in SPMD_BLOCKS),
+            *((f"rank block serving rerank ({n} partitions)", q[:SERVE_BATCH].repeat(n, 1),
+               xs[:n * COLL_CAPACITY],
+               torch.randint(0, n * COLL_CAPACITY, (n * SERVE_BATCH, 50), generator=g,
+                             device=dev, dtype=torch.int32)) for n in SPMD_BLOCKS)):
         qg, ig = qg.contiguous(), ig.contiguous()
         got_g = K.flat_l2_gathered(qg, xg, ig)
         check(torch.allclose(got_g, flat_l2_gathered_ref(qg, xg, ig), rtol=1e-5, atol=1e-5),
@@ -1994,6 +2031,10 @@ def collection_phase(torch, np, K, dev, idx_main, queries, seed: int,
     print(f"collection: {n} documents in {build_s:.1f} s = {n / build_s:.1f} inserts/s, "
           f"partitions {sizes}" + (f"; {cut}" if cut else ""), flush=True)
 
+    # phase 15's ranks load the state the fan-outs below run on from a file
+    # (a checkpoint: each store's WAL folded into its snapshot)
+    spmd_state = service_state(svc)
+
     # serial and stacked fan-out, in turns; the stacked call's first apart
     batches = [queries[i * 128:(i + 1) * 128] for i in range(COLL_BATCHES)]
     spmd = SpmdFanout(device=dev)
@@ -2001,14 +2042,14 @@ def collection_phase(torch, np, K, dev, idx_main, queries, seed: int,
     spmd.search(parts, batches[0], k)
     sync(torch, dev)
     stacked_first_s = time.perf_counter() - t
-    ser_s, stk_s, ser_runs, lat_model = [], [], [], []
+    ser_s, stk_s, ser_runs, stk_runs, lat_model = [], [], [], [], []
     ser_launch = {f: 0 for f in K.launch_counts()}
     stk_launch = dict(ser_launch)
     for qb in batches:
         for runs, secs, launches, fn in (
                 (ser_runs, ser_s, ser_launch,
                  lambda: batched_fanout_search(parts, qb, k, batch_buckets=smod.BATCH_BUCKETS)),
-                (None, stk_s, stk_launch, lambda: spmd.search(parts, qb, k))):
+                (stk_runs, stk_s, stk_launch, lambda: spmd.search(parts, qb, k))):
             c0 = K.launch_counts()
             sync(torch, dev)
             t = time.perf_counter()
@@ -2017,9 +2058,8 @@ def collection_phase(torch, np, K, dev, idx_main, queries, seed: int,
             secs.append(time.perf_counter() - t)
             for f, v in K.launch_counts().items():
                 launches[f] += v - c0[f]
-            if runs is not None:
-                runs.append(res)
-            else:
+            runs.append(res)
+            if runs is stk_runs:
                 check(same_fanout(np, res, ser_runs[-1]),
                       "the stacked fan-out differs from the serial one")
                 check(res[2]["spmd"]["partitions_in_program"] == COLL_PARTS,
@@ -2027,6 +2067,8 @@ def collection_phase(torch, np, K, dev, idx_main, queries, seed: int,
         lat_model.append(ser_runs[-1][2]["service_latency_ms"])
     ser_ms, stk_ms = np.asarray(ser_s) * 1e3, np.asarray(stk_s) * 1e3
     ru_batch = [r[2]["ru_total"] for r in ser_runs]
+    spmd_file(spmd_state, col.cfg, batches, k, stk_runs, ser_runs, queries, seed)
+    del spmd_state
 
     # the card against the CPU: each partition's index restored on the CPU
     snaps = [p.index.snapshot() for p in parts]
@@ -3732,6 +3774,207 @@ def dryrun_phase(torch, work: Path, cells: subprocess.Popen, cells_out: Path,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: phase 9's stacked fan-out across ranks that share the card
+# ---------------------------------------------------------------------------
+
+SPMD_RANKS = (2, 3)  # ranks of each group: 4 partitions over 3 ranks pad to 6
+SPMD_RANKS_BUDGET_S = 90.0  # phase 15's seconds on the clock must fit in this
+SPMD_BLOCKS = sorted({-(-COLL_PARTS // R) for R in SPMD_RANKS})  # partitions a rank stacks
+SPMD_SERVED = 64  # phase 10's first queries, served in micro-batches of SERVE_BATCH
+SPMD_WORK = ROOT / "build" / "spmd_phase"
+
+
+def spmd_file(state: dict, cfg, batches: list, k: int, stacked: list, serial: list, queries,
+              seed: int) -> None:
+    """Phase 9's part of phase 15: the collection's plain state (the form
+    ``Collection.from_reference_state`` takes) and the config, phase 9's
+    query batches and its stacked and serial results on them, and the
+    queries and seeded arrivals phase 15 serves, pickled into SPMD_WORK for
+    phase 15's ranks to load."""
+    import pickle
+
+    import numpy as np
+
+    from repro_torch.serve import poisson_arrivals
+
+    SPMD_WORK.mkdir(parents=True, exist_ok=True)
+    with open(SPMD_WORK / "collection.pkl", "wb") as f:
+        pickle.dump(dict(cfg=cfg, state=state, k=k, batches=batches, stacked=stacked,
+                         serial=serial, served=queries[:SPMD_SERVED],
+                         arrivals=poisson_arrivals(np.random.RandomState(seed), SPMD_SERVED,
+                                                   SERVE_RATE_QPS)), f)
+
+
+def spmd_load(torch, dev):
+    """(phase 15's file, its collection loaded on ``dev``, seconds)."""
+    import pickle
+
+    from repro_torch.partition import Collection
+
+    t = time.perf_counter()
+    with open(SPMD_WORK / "collection.pkl", "rb") as f:
+        d = pickle.load(f)  # written by this script's phase 9
+    col = Collection.from_reference_state(d["cfg"], d["state"], device=dev)
+    sync(torch, dev)
+    return d, col, time.perf_counter() - t
+
+
+def spmd_drive(torch, K, dev, fan, eng, parts, d: dict) -> dict:
+    """Phase 9's batches through ``fan`` (a first call apart, then each
+    batch on the host clock with the card synced, the launches counted
+    from 0), then phase 15's queries served through ``eng``: the results,
+    the responses, ms per batch and the launches."""
+    k = d["k"]
+    fan.search(parts, d["batches"][0], k)  # stacks this rank's block
+    sync(torch, dev)
+    K.reset_launch_counts()
+    runs, ms = [], []
+    for qb in d["batches"]:
+        sync(torch, dev)
+        t = time.perf_counter()
+        runs.append(fan.search(parts, qb, k))
+        sync(torch, dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+    fan_launches = K.launch_counts()
+    K.reset_launch_counts()
+    rids = [eng.submit_query(q, k=k, arrival_s=float(a)) for q, a in zip(d["served"],
+                                                                         d["arrivals"])]
+    eng.drain()
+    sync(torch, dev)
+    return dict(runs=runs, ms=ms, launches=fan_launches, served=[eng.pop_response(r) for r in rids],
+                serve_launches=K.launch_counts(), fan_devices=fan.n_devices,
+                engine_devices=eng._spmd().n_devices)
+
+
+def spmd_engine(col):
+    from repro_torch.serve import EngineConfig, VectorServeEngine
+
+    return VectorServeEngine(col, EngineConfig(max_batch=SERVE_BATCH, dispatch_mode="spmd",
+                                               admission_control=False))
+
+
+def spmd_rank(spec: Path) -> int:
+    """Phase 15 (a child process): one rank of a gloo group whose ranks
+    share the card. It loads phase 9's collection from its file, drives
+    ``SpmdFanout`` on ``make_serve_mesh()`` and a spmd engine that takes
+    that mesh by default (spmd_drive), and writes what it saw."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels as K
+    from repro_torch.launch import mesh as meshmod
+    from repro_torch.partition import SpmdFanout
+
+    sp = json.loads(spec.read_text())
+    dev = torch.device(sp["device"])  # the card (the CPU only in a rehearsal)
+    meshmod.start_process_group("gloo", world_size=sp["world"], rank=sp["rank"],
+                                init_file=sp["init"])
+    d, col, load_s = spmd_load(torch, dev)
+    fan = SpmdFanout(dev, mesh=meshmod.make_serve_mesh(device=dev))
+    out = spmd_drive(torch, K, dev, fan, spmd_engine(col), col.partitions, d)
+    Path(sp["out"]).write_bytes(pickle.dumps(dict(out, load_s=load_s)))
+    meshmod.stop_process_group()
+    return 0
+
+
+def same_response(np, a, b) -> bool:
+    return (np.array_equal(a.ids, b.ids) and np.array_equal(a.dists.view(np.int32),
+                                                             b.dists.view(np.int32))
+            and (a.status, a.ru, a.latency_ms, a.batch_size, a.complete, a.plan)
+            == (b.status, b.ru, b.latency_ms, b.batch_size, b.complete, b.plan))
+
+
+def spmd_ranks_phase(torch, np, K, dev, card: str, stacked_p50_ms: float) -> dict:
+    """Phase 15. Phase 9's collection loaded from its file and driven
+    through ``SpmdFanout`` on a mesh of R ranks for each R of SPMD_RANKS:
+    processes that share the card over a gloo group (NCCL refuses two ranks
+    on one device). Each rank's results on phase 9's batches must equal
+    phase 9's one-rank stacked and serial results bit for bit, with
+    ``info["spmd"]`` naming R; its served responses those of a one-rank
+    spmd engine on the same loaded collection (run here first); and it must
+    launch every form of RANK_FORMS. A rank that fails or runs past the
+    budget fails the phase."""
+    import pickle
+
+    from repro_torch.partition import SpmdFanout
+
+    t_phase = time.perf_counter()
+    d, col, load_s = spmd_load(torch, dev)
+    one = spmd_drive(torch, K, dev, SpmdFanout(dev), spmd_engine(col), col.partitions, d)
+    del col
+    torch.cuda.empty_cache()
+    nb = len(d["batches"])
+    for b, res in enumerate(one["runs"]):
+        check(same_fanout(np, res, d["stacked"][b]) and same_fanout(np, res, d["serial"][b]),
+              f"15: the loaded collection's one-rank batch {b} differs from phase 9's")
+    check(one["fan_devices"] == one["engine_devices"] == 1, "15: the one-rank calls span ranks")
+    out: dict = {"one_rank": dict(load_s=load_s, p50_ms=float(np.percentile(one["ms"], 50))),
+                 "groups": {}}
+    launches = {f: 0 for f in K.launch_counts()}
+    for R in SPMD_RANKS:
+        init = SPMD_WORK / f"group{R}.init"
+        init.unlink(missing_ok=True)
+        procs = []
+        for r in range(R):
+            spec = SPMD_WORK / f"rank{R}_{r}.json"
+            spec.write_text(json.dumps(dict(world=R, rank=r, init=str(init), device=str(dev),
+                                            out=str(SPMD_WORK / f"rank{R}_{r}.pkl"))))
+            procs.append(child("--spmd-rank", spec, SPMD_WORK / f"rank{R}_{r}.log"))
+        deadline = t_phase + SPMD_RANKS_BUDGET_S
+        try:
+            for r, p in enumerate(procs):
+                rc = p.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+                log = (SPMD_WORK / f"rank{R}_{r}.log").read_text()
+                check(rc == 0, f"15: rank {r} of {R} exited {rc}: {log[-3000:]}")
+        except subprocess.TimeoutExpired:
+            check(False, f"15: the ranks of {R} ran past the phase's {SPMD_RANKS_BUDGET_S:.0f} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks = [pickle.loads((SPMD_WORK / f"rank{R}_{r}.pkl").read_bytes())  # written above
+                 for r in range(R)]
+        for r, got in enumerate(ranks):
+            check(got["fan_devices"] == got["engine_devices"] == R,
+                  f"15: rank {r} of {R} spanned {got['fan_devices']} / {got['engine_devices']}")
+            for b, res in enumerate(got["runs"]):
+                check(same_fanout(np, res, d["stacked"][b]) and
+                      same_fanout(np, res, d["serial"][b]) and
+                      res[2]["failed_partitions"] == [] and
+                      res[2]["spmd"] == {"partitions_in_program": COLL_PARTS, "mesh_devices": R},
+                      f"15: rank {r} of {R}, batch {b} differs from phase 9's one-rank call")
+            check(len(got["served"]) == SPMD_SERVED and
+                  all(same_response(np, a, w) for a, w in zip(got["served"], one["served"])),
+                  f"15: rank {r} of {R}'s served responses differ from the one-rank engine's")
+            missing = [f for f in RANK_FORMS if got["launches"][f] <= 0]
+            check(not missing, f"15: rank {r} of {R}: {missing} did not launch")
+            for f in launches:
+                launches[f] += got["launches"][f] + got["serve_launches"][f]
+        batch_ms = np.max([got["ms"] for got in ranks], axis=0)  # a batch ends on its last rank
+        g = dict(ranks=R, load_s=[got["load_s"] for got in ranks],
+                 p50_ms=float(np.percentile(batch_ms, 50)),
+                 p95_ms=float(np.percentile(batch_ms, 95)),
+                 one_rank_p50_ms=out["one_rank"]["p50_ms"], phase9_stacked_p50_ms=stacked_p50_ms,
+                 launches_per_rank_per_batch=[{f: v / nb for f, v in got["launches"].items() if v}
+                                              for got in ranks],
+                 equal_to_one_rank=True)
+        out["groups"][str(R)] = g
+        print(f"spmd ranks {R} (processes sharing one {card}, a gloo group; not a multi-card "
+              f"speed): p50 {g['p50_ms']:.2f} ms, p95 {g['p95_ms']:.2f} ms a batch of 128 "
+              f"against the one-rank stacked call's {g['one_rank_p50_ms']:.2f} here and phase 9's "
+              f"{stacked_p50_ms:.2f}; load {max(g['load_s']):.1f} s; launches per rank per batch "
+              f"{json.dumps(g['launches_per_rank_per_batch'])}", flush=True)
+    out.update(launches=launches, seconds=time.perf_counter() - t_phase)
+    print(f"phase 15: {out['seconds']:.1f} s (budget {SPMD_RANKS_BUDGET_S:.0f} s)", flush=True)
+    check(out["seconds"] <= SPMD_RANKS_BUDGET_S,
+          f"phase 15 took {out['seconds']:.1f} s > {SPMD_RANKS_BUDGET_S} s")
+    return out
+
+
 def rec_at(np, responses, truth, k: int) -> float:
     from repro_torch.core import recall as rec
 
@@ -3905,6 +4148,12 @@ def run(args) -> int:
         n = dry["rank"]["cosmosann"]["launches"].get(entry["name"], 0)
         entry["launches_mesh_rank"] = n
         entry["launches"] += n
+    # 15. phase 9's stacked fan-out across ranks that share the card
+    spmd_ranks = spmd_ranks_phase(torch, np, K, dev, card, collection["stacked"]["p50_ms"])
+    for entry in line["kernels"]:
+        n = spmd_ranks["launches"][entry["name"]]
+        entry["launches_spmd_ranks"] = n
+        entry["launches"] += n
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(kernels=line["kernels"], main_path=path,
@@ -3913,7 +4162,7 @@ def run(args) -> int:
                                                   updates=updates, collection=collection,
                                                   serve=serve, lm=lm,
                                                   lm_moe_ssm=lm_moe_ssm, train=train,
-                                                  dryrun=dry,
+                                                  dryrun=dry, spmd_ranks=spmd_ranks,
                                                   card=card,
                                                   launch_floor_ms=floor_ms),
                                              indent=1))
@@ -3938,11 +4187,12 @@ def main() -> int:
                          "earlier commit), in turns with this tree's")
     ap.add_argument("--wide-tree", default="", help=argparse.SUPPRESS)  # one turn of --wide-parent
     ap.add_argument("--wide-state", default="", help=argparse.SUPPRESS)
-    for flag in ("--dryrun-cells", "--rank-phase", "--nccl-phase"):  # phase 14's processes
+    # phase 14's processes and phase 15's ranks
+    for flag in ("--dryrun-cells", "--rank-phase", "--nccl-phase", "--spmd-rank"):
         ap.add_argument(flag, default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     for flag, fn in (("dryrun_cells", dryrun_cells), ("rank_phase", rank_phase),
-                     ("nccl_phase", nccl_phase)):
+                     ("nccl_phase", nccl_phase), ("spmd_rank", spmd_rank)):
         if getattr(args, flag):
             return fn(Path(getattr(args, flag)))
     return run(args)

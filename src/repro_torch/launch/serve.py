@@ -34,7 +34,8 @@ def main(argv=None):
                     choices=("serial", "replica", "spmd"),
                     help="engine dispatch plane: serial (one lane), "
                          "replica (N concurrent lanes + hedging), spmd "
-                         "(all partitions in one stacked search)")
+                         "(all partitions in one stacked search, across "
+                         "the ranks of a running process group)")
     ap.add_argument("--lanes", type=int, default=4,
                     help="replica lanes for --dispatch-mode=replica")
     ap.add_argument("--resident-frac", type=float, default=None,

@@ -40,7 +40,7 @@ from .config import MLAConfig, ModelConfig
 from .layers import apply_rope, dense_init, rmsnorm, rmsnorm_init
 from torch.distributed.tensor import DTensor
 
-from .sharding import local_attention, local_heads, split_kv_attention, write_at
+from .sharding import local_attention, local_split, split_kv_attention, write_at
 
 NEG_INF = -1e30
 
@@ -205,9 +205,12 @@ def _mla_kv(params, cfg: ModelConfig, x, positions):
 
 def _mla_attend(q_nope, q_rope, k_nope, k_rope, v, m: MLAConfig, q_offset: int, dtype):
     """One query block of MLA attention: (B,Sq,H,·) against every key;
-    sharded tensors attend on each rank's shards (``sharding.local_heads``)."""
+    sharded tensors attend on each rank's shards (``sharding.local_split``:
+    the heads over ``model``, the rotary key, shared across heads, whole)."""
     if isinstance(q_nope, DTensor):
-        return local_heads(_mla_attend, [q_nope, q_rope], [k_nope, k_rope, v], m, q_offset,
+        B, Sq, H = q_nope.shape[:3]
+        ins = [(t, 0, 2 if t.shape[2] == H else None) for t in (q_nope, q_rope, k_nope, k_rope, v)]
+        return local_split(_mla_attend, ins, [((B, Sq, H, v.shape[3]), 0, 2)], H, m, q_offset,
                            dtype)
     Sq, Sk = q_nope.shape[1], k_nope.shape[1]
     scores = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)

@@ -712,32 +712,36 @@ def vocab_parallel_embedding(tokens: torch.Tensor, embed: DTensor) -> DTensor:
     return redistribute(out, out_pl)
 
 
-def local_heads(fn, queries: list, keys: list, *rest):
-    """``fn(*queries, *keys, *rest)`` — an attention whose tensors are
-    (B, S, heads, ·) — on each rank's shards (``local_map``'s idiom): the
-    batch over the data axes, the heads of the first query (H) over
-    ``model`` where they divide; a tensor whose dim 2 is not H (a key
-    shared across heads) stays whole over ``model``. No query sequence is
-    split, so ``fn`` may build its own causal mask. The output (B, Sq, H,
-    ·) has the first query's layout."""
-    q0 = queries[0]
-    mesh = q0.device_mesh
+def local_split(fn, ins: list, outs: list, split: int, *rest):
+    """``fn(*locals, *rest)`` on each rank's shards (``local_map``'s idiom)
+    for a computation independent across its batch and across ``split``
+    channels or heads (a depthwise conv, an SSM's chunk scan): each of
+    ``ins`` is (tensor, batch dim, split dim), None for a dim the tensor
+    lacks; every rank takes the batch over the data axes where it divides
+    and the split dim over ``model`` where ``split`` divides, so tensors
+    without a split dim (keys shared across heads) stay whole over
+    ``model``. ``outs`` gives (global shape, batch dim, split dim) for each
+    output of ``fn`` (a tensor or a tuple), returned as DTensors on that
+    layout. Plain tensors among ``ins`` pass as they are."""
+    mesh = next(t.device_mesh for t, _, _ in ins if isinstance(t, DTensor))
     names = tuple(mesh.mesh_dim_names)
-    B, Sq, H = q0.shape[:3]
     dp = [i for i, n in enumerate(names) if n in ("pod", "data")]
+    B = next(t.shape[b] for t, b, _ in ins if b is not None)
     batch = B % math.prod(mesh.size(i) for i in dp) == 0
+    cut = [batch if i in dp else split % mesh.size(i) == 0 for i in range(len(names))]
 
-    def layout(t):
-        return [(Shard(0) if batch else Replicate()) if i in dp else
-                Shard(2) if H % mesh.size(i) == 0 and t.shape[2] == H else Replicate()
-                for i in range(len(names))]
+    def layout(b, s):
+        return [Shard(d) if c and d is not None else Replicate()
+                for c, d in zip(cut, (b if i in dp else s for i in range(len(names))))]
 
-    split = [_sharded(p) for p in layout(q0)]
-    local = [_to_local(t, layout(t), split) for t in list(queries) + list(keys)]
-    out = fn(*local, *rest).contiguous()
-    shape = torch.Size((B, Sq, H) + tuple(out.shape[3:]))
-    return DTensor.from_local(out, mesh, layout(q0), run_check=False, shape=shape,
-                              stride=_contiguous_stride(shape))
+    local = [_to_local(t, layout(b, s), cut) if isinstance(t, DTensor) else t for t, b, s in ins]
+    res = fn(*local, *rest)
+    one = isinstance(res, torch.Tensor)
+    wrapped = tuple(
+        DTensor.from_local(r.contiguous(), mesh, layout(b, s), run_check=False,
+                           shape=torch.Size(shape), stride=_contiguous_stride(shape))
+        for r, (shape, b, s) in zip((res,) if one else res, outs))
+    return wrapped[0] if one else wrapped
 
 
 def split_kv_attention(qg: DTensor, k: DTensor, v: DTensor, valid: torch.Tensor, Dh: int,

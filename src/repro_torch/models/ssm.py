@@ -4,7 +4,9 @@
 Both run in the reference's *chunkwise-parallel* form: within a chunk the
 interactions are (Q, Q) masked products, and only the O(S/Q) chunk carry
 runs as a loop (a Python loop here, where the reference scans or unrolls:
-the same steps either way). Single-token recurrent steps serve decode.
+the same steps either way). Every chunk's own terms are computed at once,
+the chunks stacked on the batch dim, so only the carry costs a dispatch per
+chunk. Single-token recurrent steps serve decode.
 
 Mamba2 recurrence (per head h, state S ∈ R^{hd×ds}):
     S_t = exp(dt_t·A_h)·S_{t-1} + dt_t·(x_t ⊗ B_t);   y_t = S_t·C_t + D_h·x_t
@@ -28,29 +30,26 @@ carry holds earlier activations, so this loses nothing, and it keeps the
 step's output in that dtype; the reference promotes it to f32 when the cache is f32, which its
 layer scan then refuses (a bf16 RWKV6 model cannot decode on an f32 cache
 there), and equals it when the cache is in the activations' dtype.
+
+On a mesh (DTensor activations) the causal conv and both chunk scans run
+on each rank's local shards (``sharding.local_split``): the batch over the
+data axes, the channels or heads over ``model``, the result in the
+reference's layout.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from .config import ModelConfig, SSMConfig
 from .layers import dense_init, rmsnorm, rmsnorm_init
+from .sharding import local_split
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """jax.nn.softplus: logaddexp(x, 0)."""
     return torch.logaddexp(x, torch.zeros_like(x))
-
-
-def _chunk_scan(step, init, xs: tuple):
-    """The carry through the chunks: xs leaves (nchunk, ...) → (carry, ys
-    stacked on a leading chunk axis)."""
-    carry, ys = init, []
-    for i in range(xs[0].shape[0]):
-        carry, y = step(carry, tuple(a[i] for a in xs))
-        ys.append(y)
-    return carry, torch.stack(ys, dim=0)
 
 
 def _chunked(S: int, chunk: int, return_state: bool) -> tuple[int, int]:
@@ -97,7 +96,13 @@ def _split_mamba(cfg: ModelConfig, proj: torch.Tensor):
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv along seq: x (B,S,C), w (W,C). The reference's
-    sum of shifted copies, in its order (``F.conv1d`` sums otherwise)."""
+    sum of shifted copies, in its order (``F.conv1d`` sums otherwise). A
+    sharded ``x`` convolves on each rank's shards (``sharding.local_split``):
+    the batch over the data axes, the channels over ``model`` where they
+    divide, ``w`` and ``b`` cut to the same channels."""
+    if isinstance(x, DTensor):
+        return local_split(_causal_conv, [(x, 0, 2), (w, None, 1), (b, None, 0)],
+                           [(tuple(x.shape), 0, 2)], x.shape[2])
     W, S = w.shape[0], x.shape[1]
     out = torch.zeros_like(x)
     for i in range(W):
@@ -105,6 +110,54 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
         xi = F.pad(x, (0, 0, shift, 0))[:, :S, :]
         out = out + xi * w[i]
     return F.silu(out + b)
+
+
+def _mamba2_scan(xh, Bc, Cc, dt, A, D, Q: int, Sp: int):
+    """The chunked SSD over xh (B,S,nh,hd), Bc, Cc (B,S,ds), dt (B,S,nh), A
+    (nh,) in chunks of Q, padded to Sp, with the D (nh,) skip: (y
+    (B,S,nh,hd), final state (B,nh,hd,ds)). Every chunk's own terms are
+    computed at once, the chunks stacked on the batch dim; only the carry
+    loops. Sharded inputs scan on each rank's batch and heads."""
+    B, S, nh, hd = xh.shape
+    ds = Bc.shape[-1]
+    if isinstance(xh, DTensor):
+        return local_split(
+            _mamba2_scan, [(xh, 0, 2), (Bc, 0, None), (Cc, 0, None), (dt, 0, 2),
+                           (A, None, 0), (D, None, 0)],
+            [((B, S, nh, hd), 0, 2), ((B, nh, hd, ds), 0, 1)], nh, Q, Sp)
+    if Sp != S:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, Sp - S))
+        Bc, Cc, dt = (F.pad(a, (0, 0, 0, Sp - S)) for a in (Bc, Cc, dt))
+    n = Sp // Q
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
+
+    def chunks(a):  # (B, Sp, ...) -> (n·B, Q, ...), chunk-major
+        return a.reshape(B, n, Q, *a.shape[2:]).transpose(0, 1).reshape(n * B, Q, *a.shape[2:])
+
+    xq, bq, cq, dtq = chunks(xh), chunks(Bc), chunks(Cc), chunks(dt)
+    la = torch.cumsum(dtq * A, dim=1)  # (n·B,Q,nh) cumulative log-decay <= 0
+    # intra-chunk: M_ijh = exp(l_i - l_j) · (C_i·B_j) · dt_j, i >= j
+    cb = torch.einsum("bis,bjs->bij", cq, bq)  # (n·B,Q,Q)
+    # the exponent masked first: above the diagonal l_i - l_j > 0 can
+    # overflow to inf, and the outer where's gradient times inf is NaN
+    seg = torch.where(mask[None, :, :, None], la[:, :, None, :] - la[:, None, :, :], -torch.inf)
+    dmat = torch.exp(seg)  # (n·B,Q,Q,nh)
+    M = torch.where(mask[None, :, :, None], dmat * cb[..., None], 0.0)
+    M = M * dtq[:, None, :, :]  # dt at the j (source) index
+    y = torch.einsum("bijh,bjhd->bihd", M, xq)
+    # each chunk's decay and inflow; the carry runs through them in order
+    wj = dtq * torch.exp(la[:, -1:, :] - la)  # (n·B,Q,nh)
+    decay = torch.exp(la[:, -1])[:, :, None, None].reshape(n, B, nh, 1, 1)
+    inflow = torch.einsum("bjhd,bjs,bjh->bhds", xq, bq, wj).reshape(n, B, nh, hd, ds)
+    S_c, S_in = torch.zeros((B, nh, hd, ds), dtype=torch.float32, device=xh.device), []
+    for i in range(n):
+        S_in.append(S_c)
+        S_c = decay[i] * S_c + inflow[i]
+    S_in = torch.stack(S_in).reshape(n * B, nh, hd, ds)
+    # carry from previous chunks
+    y = y + torch.exp(la)[..., None] * torch.einsum("bhds,bis->bihd", S_in, cq)
+    y = y.reshape(n, B, Q, nh, hd).transpose(0, 1).reshape(B, Sp, nh, hd)[:, :S]
+    return y + D[None, None, :, None] * xh[:, :S], S_c
 
 
 def mamba2_forward(params, cfg: ModelConfig, x: torch.Tensor, return_state: bool = False):
@@ -124,40 +177,7 @@ def mamba2_forward(params, cfg: ModelConfig, x: torch.Tensor, return_state: bool
     Bc, Cc = Bc.float(), Cc.float()
 
     Q, Sp = _chunked(S, s.chunk, return_state)
-    if Sp != S:
-        xh = F.pad(xh, (0, 0, 0, 0, 0, Sp - S))
-        Bc, Cc, dt = (F.pad(a, (0, 0, 0, Sp - S)) for a in (Bc, Cc, dt))
-    nchunk = Sp // Q
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-
-    def chunk_step(S_in, inp):
-        xq, bq, cq, dtq = inp  # (B,Q,nh,hd), (B,Q,ds), (B,Q,ds), (B,Q,nh)
-        la = torch.cumsum(dtq * A, dim=1)  # (B,Q,nh) cumulative log-decay <= 0
-        # intra-chunk: M_ijh = exp(l_i - l_j) · (C_i·B_j) · dt_j, i >= j
-        cb = torch.einsum("bis,bjs->bij", cq, bq)  # (B,Q,Q)
-        # the exponent masked first: above the diagonal l_i - l_j > 0 can
-        # overflow to inf, and the outer where's gradient times inf is NaN
-        seg = torch.where(mask[None, :, :, None], la[:, :, None, :] - la[:, None, :, :], -torch.inf)
-        dmat = torch.exp(seg)  # (B,Q,Q,nh)
-        M = torch.where(mask[None, :, :, None], dmat * cb[..., None], 0.0)
-        M = M * dtq[:, None, :, :]  # dt at the j (source) index
-        y = torch.einsum("bijh,bjhd->bihd", M, xq)
-        # carry from previous chunks
-        y = y + torch.exp(la)[..., None] * torch.einsum("bhds,bis->bihd", S_in, cq)
-        # new carry state
-        wj = dtq * torch.exp(la[:, -1:, :] - la)  # (B,Q,nh)
-        S_out = torch.exp(la[:, -1])[:, :, None, None] * S_in + torch.einsum(
-            "bjhd,bjs,bjh->bhds", xq, bq, wj)
-        return S_out, y
-
-    S0 = torch.zeros((B, nh, hd, ds), dtype=torch.float32, device=x.device)
-    inp = (xh.reshape(B, nchunk, Q, nh, hd).transpose(0, 1),
-           Bc.reshape(B, nchunk, Q, ds).transpose(0, 1),
-           Cc.reshape(B, nchunk, Q, ds).transpose(0, 1),
-           dt.reshape(B, nchunk, Q, nh).transpose(0, 1))
-    S_fin, ys = _chunk_scan(chunk_step, S0, inp)
-    y = ys.transpose(0, 1).reshape(B, Sp, nh, hd)[:, :S]
-    y = y + params["D"][None, None, :, None] * xh[:, :S]
+    y, S_fin = _mamba2_scan(xh, Bc, Cc, dt, A, params["D"], Q, Sp)
     y = y.reshape(B, S, din).to(x.dtype)
     y = rmsnorm(params["out_norm"], y, cfg.norm_eps) * F.silu(z)
     out = y @ params["out_proj"]
@@ -240,6 +260,47 @@ def _rwkv_streams(params, x: torch.Tensor, x_prev: torch.Tensor):
     return r, k, v, g, logw
 
 
+def _rwkv6_scan(rh, kh, vh, lw, u, Q: int, Sp: int):
+    """The chunked WKV over r, k, v and log decays (B,S,nh,hd) with the
+    bonus u (nh,hd), in chunks of Q, padded to Sp: (y (B,S,nh·hd) in f32,
+    final state (B,nh,hd,hd)). Every chunk's own terms are computed at
+    once, the chunks stacked on the batch dim; only the carry loops.
+    Sharded inputs scan on each rank's batch and heads."""
+    B, S, nh, hd = rh.shape
+    if isinstance(rh, DTensor):
+        return local_split(
+            _rwkv6_scan, [(rh, 0, 2), (kh, 0, 2), (vh, 0, 2), (lw, 0, 2), (u, None, 0)],
+            [((B, S, nh * hd), 0, 2), ((B, nh, hd, hd), 0, 1)], nh, Q, Sp)
+    if Sp != S:
+        rh, kh, vh, lw = (F.pad(a, (0, 0, 0, 0, 0, Sp - S)) for a in (rh, kh, vh, lw))
+    n = Sp // Q
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=rh.device), diagonal=-1)
+    rq, kq, vq, lq = (a.reshape(B, n, Q, nh, hd).transpose(0, 1).reshape(n * B, Q, nh, hd)
+                      for a in (rh, kh, vh, lw))
+    l = torch.cumsum(lq, dim=1)  # (n·B,Q,nh,hd) cumulative log decay
+    l_prev = l - lq  # decay up to but excluding i
+    r_t = rq * torch.exp(l_prev)
+    k_t = kq * torch.exp(-l)
+    A = torch.einsum("bihd,bjhd->bhij", r_t, k_t)  # the strict lower part is valid
+    A = torch.where(mask[None, None], A, 0.0)
+    diag = torch.einsum("bihd,hd,bihd->bhi", rq, u, kq)  # current-token bonus
+    y = torch.einsum("bhij,bjhd->bihd", A, vq)
+    y = y + diag.permute(0, 2, 1)[..., None] * vq
+    # each chunk's decay and inflow; the carry (S_in (B,nh,hd_k,hd_v)) runs
+    # through them in order
+    decay = torch.exp(l[:, -1]).reshape(n, B, nh, hd)
+    inflow = torch.einsum("bjhk,bjhv->bhkv", kq * torch.exp(l[:, -1:] - l), vq)
+    inflow = inflow.reshape(n, B, nh, hd, hd)
+    S_c, S_in = torch.zeros((B, nh, hd, hd), dtype=torch.float32, device=rh.device), []
+    for i in range(n):
+        S_in.append(S_c)
+        S_c = decay[i][..., None] * S_c + inflow[i]
+    S_in = torch.stack(S_in).reshape(n * B, nh, hd, hd)
+    # carry
+    y = y + torch.einsum("bihk,bhkv->bihv", rq * torch.exp(l_prev), S_in)
+    return y.reshape(n, B, Q, nh, hd).transpose(0, 1).reshape(B, Sp, nh * hd)[:, :S], S_c
+
+
 def rwkv6_forward(params, cfg: ModelConfig, x: torch.Tensor, x_prev=None,
                   return_state: bool = False):
     """Full-sequence chunked WKV. x (B,S,dm) -> (B,S,dm)[, final state]."""
@@ -257,34 +318,8 @@ def rwkv6_forward(params, cfg: ModelConfig, x: torch.Tensor, x_prev=None,
     u = params["u"].reshape(nh, hd)
 
     Q, Sp = _chunked(S, s.chunk, return_state)
-    if Sp != S:
-        rh, kh, vh, lw = (F.pad(a, (0, 0, 0, 0, 0, Sp - S)) for a in (rh, kh, vh, lw))
-    nchunk = Sp // Q
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device), diagonal=-1)
-
-    def chunk_step(S_in, inp):  # S_in (B,nh,hd_k,hd_v)
-        rq, kq, vq, lq = inp  # (B,Q,nh,hd) each
-        l = torch.cumsum(lq, dim=1)  # (B,Q,nh,hd) cumulative log decay
-        l_prev = l - lq  # decay up to but excluding i
-        r_t = rq * torch.exp(l_prev)
-        k_t = kq * torch.exp(-l)
-        A = torch.einsum("bihd,bjhd->bhij", r_t, k_t)  # the strict lower part is valid
-        A = torch.where(mask[None, None], A, 0.0)
-        diag = torch.einsum("bihd,hd,bihd->bhi", rq, u, kq)  # current-token bonus
-        y = torch.einsum("bhij,bjhd->bihd", A, vq)
-        y = y + diag.permute(0, 2, 1)[..., None] * vq
-        # carry
-        y = y + torch.einsum("bihk,bhkv->bihv", rq * torch.exp(l_prev), S_in)
-        # state update
-        decay_out = torch.exp(l[:, -1])  # (B,nh,hd)
-        S_out = decay_out[..., None] * S_in + torch.einsum(
-            "bjhk,bjhv->bhkv", kq * torch.exp(l[:, -1:] - l), vq)
-        return S_out, y
-
-    S0 = torch.zeros((B, nh, hd, hd), dtype=torch.float32, device=x.device)
-    inp = tuple(a.reshape(B, nchunk, Q, nh, hd).transpose(0, 1) for a in (rh, kh, vh, lw))
-    S_fin, ys = _chunk_scan(chunk_step, S0, inp)
-    y = ys.transpose(0, 1).reshape(B, Sp, din)[:, :S].to(x.dtype)
+    y, S_fin = _rwkv6_scan(rh, kh, vh, lw, u, Q, Sp)
+    y = y.to(x.dtype)
     y = rmsnorm(params["out_norm"], y, cfg.norm_eps) * g
     out = y @ params["wo"]
     if return_state:

@@ -11,8 +11,9 @@ partial results client-side (§3.5 "SDK Query Plan", §4.3):
                     analogue
     fanout.py       cross-partition scatter/gather with client-side top-k
                     merge, continuation handling, hedged requests, and
-                    every partition in one stacked search on one card
-                    (``SpmdFanout``, ``distributed_search_fn``)
+                    every partition in one stacked search, on one card
+                    or across a mesh's ranks (``SpmdFanout``,
+                    ``distributed_search_fn``)
     replica.py      replica sets: quorum writes, failover, read spreading
 """
 from .partitioner import Collection, CollectionConfig, PhysicalPartition

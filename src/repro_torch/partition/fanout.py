@@ -23,7 +23,9 @@ Device paths, the counterparts of the reference's ``shard_map`` programs:
     partitions together, then one rerank. No kernel reads across lanes and
     a finished lane's state does not move, so the results are bit-identical
     to the serial per-partition loop; RU is metered on each partition's own
-    meter and governor.
+    meter and governor. On a mesh of R ranks each rank stacks and searches
+    its contiguous block of the partitions (padded to a multiple of R) and
+    the per-partition partials are all-gathered before the host merge.
   * ``distributed_search_fn`` — the multi-pod dry-run's search step over
     shard-stacked arrays, as one stacked search plus a ``topk_select`` merge;
     on a mesh each rank searches its shards and the partials are
@@ -652,17 +654,34 @@ _SPMD_SIGNATURES: set = set()
 
 
 def spmd_jit_cache_size() -> int:
-    """The number of distinct launch signatures -- (partitions P, bucket,
-    schemas V, stacked rows, L, k, k', W, metric) -- that ``SpmdFanout`` has
-    run: the port's counterpart of the reference's count of compiled
-    ``shard_map`` programs and shapes. It feeds
+    """The number of distinct launch signatures -- (ranks R, partitions P,
+    bucket, schemas V, stacked rows, L, k, k', W, metric) -- that
+    ``SpmdFanout`` has run: the port's counterpart of the reference's count
+    of compiled ``shard_map`` programs and shapes. It feeds
     ``serve.vector_engine.serving_jit_cache_size``; the stacked call's own
     search and rerank count here, not in ``core.search.jit_cache_size``."""
     return len(_SPMD_SIGNATURES)
 
 
+def _mesh_place(mesh) -> tuple[int, int]:
+    """(R, r): the ranks of ``mesh`` and this rank's place among them,
+    row-major over its axes (the reference shards the stacked partitions'
+    leading axis over ``P(axes)``: every axis, the first outermost). A mesh
+    without running ranks (``AbstractMesh``) or without this rank raises."""
+    if not hasattr(mesh, "get_group"):
+        raise ValueError(f"SpmdFanout needs a DeviceMesh of running ranks, not {mesh!r}")
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the mesh")
+    r = 0
+    for d, c in enumerate(coord):
+        r = r * mesh.size(d) + c
+    return mesh.size(), r
+
+
 class SpmdFanout:
-    """One stacked search driving every partition's query batch on one card.
+    """One stacked search driving every partition's query batch, on one
+    card or across the ranks of a mesh.
 
     Where ``batched_fanout_search`` loops partitions on the host — one
     search per partition — this concatenates the searchable partitions'
@@ -674,34 +693,45 @@ class SpmdFanout:
     runs the kernels the serial lane runs on the same rows, and a finished
     lane's state does not move while other lanes go on.
 
-    The visited bitmap of a lane spans all P·capacity slots (each lane
+    On a mesh of R ranks (the reference's ``SpmdFanout(mesh)``; every axis
+    shards partitions) every rank holds the collection's host state and
+    runs the same ``search`` on the same inputs. The live partitions are
+    padded to a multiple of R by repeating partition 0 (computed, never
+    merged), as the reference pads them; rank r stacks and searches only
+    its contiguous block, then the block's per-partition partials (doc
+    ids, dists, the k' beam ids, hops / expansions / cmps per lane) are
+    all-gathered over the mesh, through the host under gloo. Every rank
+    then merges and meters all partitions exactly as one rank does, so each
+    returns the one-rank call's (ids, dists, info) bit for bit (bar
+    ``info["spmd"]["mesh_devices"]``). A failed collective fails the call;
+    nothing falls back to one rank.
+
+    The visited bitmap of a lane spans all of the block's slots (each lane
     only ever sets bits of its own partition's range): the bitmap code
     stays the one every path runs.
 
-    The stacked arrays of the last partition set searched are kept (one
-    copy of every partition's arrays on the device), invalidated by a
-    change of the set or of a partition's ``providers.write_count`` epoch
-    (plus count / schema-count / medoid, which can move without a provider
+    The stacked arrays of the last partition block searched are kept (one
+    copy of the block's arrays on the device), invalidated by a change of
+    the block or of a partition's ``providers.write_count`` epoch (plus
+    count / schema-count / medoid, which can move without a provider
     write).
 
     Partitions whose graph isn't built (or that are empty) fall back to
-    the host ``search_batch`` — the same call the serial path makes — and
-    their results interleave back at their original merge position.
-    Partitions whose replica set is down (``health``) go to
+    the host ``search_batch`` — the same call the serial path makes, on
+    every rank — and their results interleave back at their original merge
+    position. Partitions whose replica set is down (``health``) go to
     ``failed_partitions``. RU is metered on each partition's own
     meter/governor exactly like ``PhysicalPartition.search_batch``.
     """
 
     def __init__(self, device: DeviceLike = None, mesh=None):
-        """On ``device`` (the card unless asked otherwise), or on the device
-        of ``mesh`` (the reference's argument), which must hold one rank:
-        the stacked fan-out across ranks is not ported yet."""
-        if mesh is not None:
-            if mesh.size() != 1:
-                raise ValueError(f"SpmdFanout runs on one rank; a mesh of {mesh.size()} ranks "
-                                 "is not supported")
-            device = _mesh_device(mesh)
+        """The stacked arrays on ``device``: the card unless the caller asks
+        for the CPU, whatever the mesh's backend. ``mesh`` (a
+        ``DeviceMesh``, the reference's argument) spreads the partitions
+        over its ranks; without one the call runs on this process alone."""
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.n_devices, self._rank = (1, 0) if mesh is None else _mesh_place(mesh)
         self._stack = None  # (stamp, the partitions, their stacked arrays)
 
     # -- stacked provider arrays (cached per write epoch) ----------------
@@ -813,7 +843,7 @@ class SpmdFanout:
             service_latency_ms=(float(np.max([lat_by[i] for i in ok]))
                                 if ok else 0.0),
             spmd=dict(partitions_in_program=len(prog_idx),
-                      device=str(self.device)),
+                      mesh_devices=self.n_devices),
             failed_partitions=failed,
             complete=not failed,
         )
@@ -821,8 +851,9 @@ class SpmdFanout:
 
     def _search_stacked(self, prog_parts, queries, k, L, batch_buckets, W,
                         rerank_multiplier) -> list[tuple]:
-        """The one stacked search + rerank. Returns (doc ids, dists, RU,
-        stats, modelled latency ms) per partition, in order."""
+        """The stacked search + rerank of this rank's block, its partials
+        gathered over the mesh. Returns (doc ids, dists, RU, stats,
+        modelled latency ms) per partition of ``prog_parts``, in order."""
         B = len(queries)
         idx0 = prog_parts[0].index
         W_eff = W or idx0.cfg.beam_width
@@ -831,36 +862,57 @@ class SpmdFanout:
         L_eff = max(L_req, kprime)
         bucket = smod.next_bucket(B, batch_buckets)
         padded = smod.pad_batch_np(queries, bucket)
+        R, P = self.n_devices, len(prog_parts)
+        per = -(-P // R)
+        block = (list(prog_parts) + [prog_parts[0]] * (per * R - P))[
+            self._rank * per:(self._rank + 1) * per]
 
         # per-partition LUTs from the SAME calls the serial path makes
         # (identical inputs → identical tables, bit for bit); the V axis
         # pads to the widest schema set by repeating the last table —
         # padded tables are never selected (versions < V_p)
-        luts = [p.index._luts(p.index._t(padded)).to(self.device) for p in prog_parts]
-        V_max = max(lt.shape[1] for lt in luts)
+        V_max = max(len(p.index.schemas) for p in prog_parts)
+        luts = [p.index._luts(p.index._t(padded)).to(self.device) for p in block]
         luts = torch.cat([
             lt if lt.shape[1] == V_max else torch.cat(
                 [lt, lt[:, -1:].expand(-1, V_max - lt.shape[1], -1, -1)], 1)
             for lt in luts]).contiguous()
-        arrs = self._stacked(prog_parts)
-        _SPMD_SIGNATURES.add((len(prog_parts), bucket, V_max, arrs["neighbors"].shape[0], L_eff,
-                              k, kprime, int(W_eff), idx0.cfg.metric))
+        arrs = self._stacked(block)
+        _SPMD_SIGNATURES.add((R, P, bucket, V_max, arrs["neighbors"].shape[0], L_eff, k,
+                              kprime, int(W_eff), idx0.cfg.metric))
         with smod.uncounted():
             res = smod.batch_greedy_search(
                 arrs["neighbors"], arrs["codes"], arrs["versions"], arrs["live"], luts,
                 arrs["medoid"].repeat_interleave(bucket), L=L_eff, beam_width=int(W_eff))
             cand = res.beam_ids[:, :kprime]
-            q = torch.from_numpy(padded).to(self.device).repeat(len(prog_parts), 1)
+            q = torch.from_numpy(padded).to(self.device).repeat(len(block), 1)
             ids, dists = fmod.rerank(q, cand, arrs["vectors"], k=k, metric=idx0.cfg.metric)
-        ids, dists, cand = ids.cpu().numpy(), dists.cpu().numpy(), cand.cpu().numpy()
-        doc = np.where(ids >= 0, arrs["slot_to_doc"][np.maximum(ids, 0)], -1)
+
+        # the block's partials: (per, B, ·) doc ids and the k' beam ids in
+        # each partition's own slots, dists; (per, 3) each partition's mean
+        # hops / cmps / expansions over its lanes
+        def lanes(t):
+            return t.cpu().numpy().reshape(per, bucket, -1)[:, :B]
+
+        ids, cand = lanes(ids), lanes(cand)
+        offs = np.asarray(arrs["offsets"], np.int64)[:, None, None]
+        ints = np.concatenate([
+            np.where(ids >= 0, arrs["slot_to_doc"][np.maximum(ids, 0)], -1),
+            np.where(cand >= 0, cand - offs, -1)], axis=2).astype(np.int64)
+        dists = lanes(dists)
+        means = torch.stack([
+            torch.stack([c[j * bucket:j * bucket + B].float().mean()
+                         for c in (res.n_hops, res.n_cmps, res.n_exp)])
+            for j in range(per)]).cpu().numpy()
+        if R > 1:
+            ints, dists, means = self._gather(ints), self._gather(dists), self._gather(means)
+
         out = []
-        for j, (p, off) in enumerate(zip(prog_parts, arrs["offsets"])):
-            rows = slice(j * bucket, j * bucket + B)
+        for j, p in enumerate(prog_parts):
             st = QueryStats(
-                hops=float(res.n_hops[rows].float().mean()),
-                cmps=float(res.n_cmps[rows].float().mean()),
-                expansions=float(res.n_exp[rows].float().mean()),
+                hops=float(means[j, 0]),
+                cmps=float(means[j, 1]),
+                expansions=float(means[j, 2]),
                 full_reads=float(kprime),
                 plan="graph-spmd",
             )
@@ -869,8 +921,7 @@ class SpmdFanout:
             # cache state and hit/miss counts match bit for bit)
             pages = getattr(p.providers, "pages", None)
             if pages is not None:
-                local = np.where(cand[rows] >= 0, cand[rows] - off, -1)
-                th, tm, pinned = pages.touch(local, pin=True)
+                th, tm, pinned = pages.touch(ints[j, :, k:k + kprime], pin=True)
                 pages.unpin(pinned)
                 st.tier_hits = th / max(B, 1)
                 st.tier_misses = tm / max(B, 1)
@@ -881,6 +932,22 @@ class SpmdFanout:
             pv.op += counters_for_ru(st, lanes=B)
             ru, _ = pv.end_op()
             p.governor.request(ru)
-            out.append((doc[rows].astype(np.int64), dists[rows], ru, st,
+            out.append((ints[j, :, :k], dists[j], ru, st,
                         pv.meter.latency_ms(counters_for_latency(st))))
         return out
+
+    def _gather(self, a: np.ndarray) -> np.ndarray:
+        """Every rank's ``a`` stacked on dim 0 in rank order (row-major over
+        the mesh's axes: gathered over the last axis first): through the
+        host under gloo, on the device under NCCL."""
+        import torch.distributed as dist
+
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        for d in reversed(range(self.mesh.ndim)):
+            group = self.mesh.get_group(d)
+            on = torch.device("cpu") if dist.get_backend(group) == "gloo" else self.device
+            t = t.to(on)
+            parts = [torch.empty_like(t) for _ in range(self.mesh.size(d))]
+            dist.all_gather(parts, t, group=group)
+            t = torch.cat(parts)
+        return t.cpu().numpy()

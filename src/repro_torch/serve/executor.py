@@ -31,7 +31,8 @@ Modes:
 
 The port's own copy of ``repro.serve.executor`` (numpy only, but importing
 it through ``repro`` loads JAX): the same lanes, draws and outcomes. In the
-port's ``spmd`` mode the one lane is one stacked search on the card.
+port's ``spmd`` mode the one lane is one stacked search, on the card or
+across the ranks of the engine's mesh.
 """
 from __future__ import annotations
 

@@ -41,10 +41,12 @@ The port of ``repro.serve.vector_engine``, line for line but in three places:
   * the exact plan scans each partition's device mirror
     (``providers.materialize``), never a fresh host-to-device copy of its
     vectors, and its page-tier mask stays a host array;
-  * ``dispatch_mode="spmd"`` runs the port's ``SpmdFanout``: every
-    partition in one stacked search on the collection's device (``device``
-    takes the place of the reference's ``spmd_mesh``, which is accepted as
-    a mesh of one rank);
+  * ``dispatch_mode="spmd"`` runs the port's ``SpmdFanout`` on the
+    collection's device (or ``device``): every partition in one stacked
+    search, spread over the ranks of ``spmd_mesh``, which defaults, as the
+    reference's does, to ``make_serve_mesh()`` over every rank when a
+    process group of more than one rank is running, and to this process
+    alone otherwise (the reference's one-device mesh, the same answers);
   * the port compiles nothing per shape, so where the reference counts
     compiled signatures (``serving_jit_cache_size``, the batch's
     ``jit_cache_trajectory``, "a compile stall" in the comments below), the
@@ -62,6 +64,7 @@ from collections import deque
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
+import torch.distributed as dist
 
 from ..core import flat as fmod
 from ..core import search as smod
@@ -205,7 +208,7 @@ class VectorServeEngine:
         replica_sets: Optional[Sequence] = None,  # partition.ReplicaSet list
         device: DeviceLike = None,  # dispatch_mode="spmd"; None → the collection's
         policy: Optional[ControlPolicy] = None,  # None → from cfg.policy
-        spmd_mesh=None,  # or a DeviceMesh of one rank (SpmdFanout refuses a larger one)
+        spmd_mesh=None,  # a DeviceMesh; None → every rank of a running group
     ):
         self.collection = collection
         self.cfg = cfg
@@ -764,8 +767,12 @@ class VectorServeEngine:
 
     def _spmd(self) -> SpmdFanout:
         if self._spmd_fanout is None:
-            self._spmd_fanout = (SpmdFanout(self._spmd_device) if self._spmd_mesh is None
-                                 else SpmdFanout(mesh=self._spmd_mesh))
+            mesh = self._spmd_mesh
+            if mesh is None and dist.is_available() and dist.is_initialized() \
+                    and dist.get_world_size() > 1:
+                from ..launch.mesh import make_serve_mesh
+                mesh = make_serve_mesh(device=self._spmd_device)
+            self._spmd_fanout = SpmdFanout(self._spmd_device, mesh=mesh)
         return self._spmd_fanout
 
     def _exact_scan(self, partitions, queries: np.ndarray, k: int,

@@ -172,6 +172,33 @@ def test_smoke_cell_replicates_no_parameter(arch, kind):
     assert rec["memory"]["argument_size_in_bytes"] > 0
 
 
+@pytest.mark.parametrize("arch,kind", [("zamba2-1.2b", "train"), ("zamba2-1.2b", "prefill"),
+                                       ("rwkv6-7b", "train"), ("rwkv6-7b", "prefill")])
+def test_ssm_smoke_cell_traces_ok(arch, kind, monkeypatch):
+    """zamba2's and rwkv6's smoke cells on a fake (2, 4) mesh, whose
+    channels and heads divide ``model``, through the dry-run's cell plan
+    (the full depth and its cut variants): ok, no op falls back, no
+    parameter or cache leaf gathered over ``model``, and the causal conv
+    and the chunk scans ran on each rank's local shards."""
+    from repro_torch.models import ssm
+
+    calls = []
+    real = ssm.local_split
+    monkeypatch.setattr(ssm, "local_split",
+                        lambda fn, *a: calls.append(fn.__name__) or real(fn, *a))
+    mesh = _mesh_2x4()
+    cfg = get_smoke_config(arch)
+    s = cfg.ssm
+    din = s.expand * cfg.d_model
+    assert (din // s.head_dim) % 4 == 0 and (din + 2 * s.d_state) % 4 == 0
+    shape = ShapeSpec("t", 32, 8, kind) if kind == "train" else ShapeSpec("s", 64, 8, kind)
+    out = dryrun._run_lm_cell(arch, cfg, shape, kind, "2x4", mesh)
+    assert out["ok"], out.get("error")
+    assert all(r["reshards"] == {} and r["replicated"] == {} for r in out["records"]), out
+    want = {"_causal_conv", "_mamba2_scan"} if s.kind == "mamba2" else {"_rwkv6_scan"}
+    assert set(calls) == want, set(calls)
+
+
 def test_fallback_counts_a_parameter_gathered_over_model():
     """``ReplicateFallback.replicated`` names a watched tensor (or a view of
     it) whose shard over ``model`` a reshape gathers; a gather over

@@ -337,11 +337,3 @@ def test_per_lane_start_equals_int_form(pair):
             assert torch.equal(a[lane:lane + 1], b)
     with pytest.raises(ValueError, match="start per lane"):
         run(luts, starts[:4])
-
-
-def test_spmd_fanout_refuses_a_mesh_of_more_than_one_rank():
-    """The stacked fan-out runs on one rank: a larger mesh raises."""
-    from repro_torch.launch.mesh import AbstractMesh
-
-    with pytest.raises(ValueError, match="one rank"):
-        SpmdFanout(mesh=AbstractMesh((2,), ("data",)))
