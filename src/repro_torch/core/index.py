@@ -39,6 +39,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import spans
 from ..device import DeviceLike
 from . import delete as dmod
 from . import flat as fmod
@@ -125,6 +126,8 @@ class DiskANNIndex:
         if pages is None:
             return None
         if isinstance(slots, torch.Tensor):  # copied to the host only when a tier exists
+            if spans.ACTIVE:
+                spans.ACTIVE.syncs += 1
             slots = slots.cpu().numpy()
         hits, misses, touched = pages.touch(slots, admit=admit, pin=pin)
         stats.tier_hits += hits / max(B, 1)
@@ -144,10 +147,16 @@ class DiskANNIndex:
         if vectors.ndim != 2 or vectors.shape[1] != self.dim:
             raise ValueError(f"vectors must be (n, {self.dim})")
         stats = QueryStats(plan="insert")
-        for start in range(0, len(doc_ids), self.cfg.batch_size):
-            ids = list(doc_ids[start: start + self.cfg.batch_size])
-            vecs = vectors[start: start + self.cfg.batch_size]
-            self._insert_batch(ids, vecs, stats)
+        rec = spans.ACTIVE
+        sp = rec.begin("index.insert", docs=len(doc_ids)) if rec else -1
+        try:
+            for start in range(0, len(doc_ids), self.cfg.batch_size):
+                ids = list(doc_ids[start: start + self.cfg.batch_size])
+                vecs = vectors[start: start + self.cfg.batch_size]
+                self._insert_batch(ids, vecs, stats)
+        finally:
+            if rec:
+                rec.end(sp)
         return stats
 
     def _alloc(self, n: int) -> np.ndarray:
@@ -174,8 +183,12 @@ class DiskANNIndex:
         for d, s in zip(ids, slots):
             self.doc_to_slot[int(d)] = int(s)
             self.slot_to_doc[s] = int(d)
+        rec = spans.ACTIVE
+        sp = rec.begin("insert.full_write") if rec else -1
         self.pv.set_full(self.ctx, slots, vecs)
         self.pv.barrier("upsert:post_full")
+        if rec:
+            rec.end(sp)
 
         if not self.schemas:
             self._pending.extend(int(s) for s in slots)
@@ -185,10 +198,13 @@ class DiskANNIndex:
             return
 
         # quantized term inline with the document write (§3.4)
+        sp = rec.begin("insert.term_write") if rec else -1
         codes = pqmod.encode(self.schemas[-1], self._t(vecs)).cpu().numpy()
         ver = np.full((len(slots),), len(self.schemas) - 1, np.uint8)
         self.pv.set_quant(self.ctx, slots, codes, ver)
         self.pv.set_live(self.ctx, slots, True)
+        if rec:
+            rec.end(sp)
 
         if self._graph_built:
             self._graph_insert(slots, vecs, stats)
@@ -250,12 +266,20 @@ class DiskANNIndex:
         """Mini-batch graph update (Alg 5): batched search + prune, then one
         consolidated reverse-edge append per touched node."""
         cfg = self.cfg
+        rec = spans.ACTIVE
+        sp = rec.begin("insert.materialize") if rec else -1
         neighbors, codes, versions, live, _ = self.pv.materialize(self.ctx)
         books = self._codebook_stack()
         q = self._t(vecs)
+        if rec:
+            rec.end(sp)
+            sp = rec.begin("insert.candidates")
         cand_ids, _cand_d, istats = imod.insert_candidates(
             neighbors, codes, versions, live, books, q, self.medoid,
             L_build=cfg.L_build, metric=cfg.metric)
+        if rec:
+            rec.end(sp)
+            sp = rec.begin("insert.prune")
         nbrs = imod.prune_batch(codes, versions, books, q, cand_ids, R=cfg.R,
                                 alpha=cfg.alpha, metric=cfg.metric).cpu().numpy()  # (B, R)
         stats.hops += float(istats.hops.sum())
@@ -264,6 +288,9 @@ class DiskANNIndex:
         rows = np.full((len(slots), cfg.R_slack), -1, np.int32)
         rows[:, : cfg.R] = nbrs
         self.pv.set_neighbors(self.ctx, slots, rows)
+        if rec:
+            rec.end(sp)
+            sp = rec.begin("insert.edges")
 
         # group reverse edges by target: ONE consolidated append per node --
         # the Bw-Tree "no duplicate patch for a key" contract (§2.1)
@@ -285,12 +312,17 @@ class DiskANNIndex:
                 row = self.pv.neighbors[b]
                 over_nodes.append(b)
                 over_cands.append(list(dict.fromkeys(row[row >= 0].tolist() + ps)))
+        if rec:
+            rec.end(sp)
         # Each overflow prune reads only its own node's row (plus codes and
         # liveness, which no prune writes) and writes only that row, so
         # running all of this call's prunes as one batch gives the graph the
         # reference's one-at-a-time loop gives.
         if over_nodes:
+            sp = rec.begin("insert.overflow_prune") if rec else -1
             self._prune_nodes(np.asarray(over_nodes, np.int64), over_cands)
+            if rec:
+                rec.end(sp)
 
     def _prune_nodes(self, nodes: np.ndarray, cands: list[list[int]]):
         """RobustPrune each node's merged candidate list down to R, in one batch."""
@@ -302,7 +334,11 @@ class DiskANNIndex:
             ids[i, : len(c)] = c
         live_mask = self.pv.live[np.maximum(ids, 0)] & (ids >= 0)
         ids = np.where(live_mask, ids, -1)
+        rec = spans.ACTIVE
+        sp = rec.begin("insert.materialize") if rec else -1
         _, codes, versions, _, _ = self.pv.materialize(self.ctx)
+        if rec:
+            rec.end(sp)
         books = self._codebook_stack()
         ids_t = self._t(ids.astype(np.int32))
         nodes_t = self._t(nodes)
@@ -436,29 +472,49 @@ class DiskANNIndex:
         L = L or self.cfg.L_search
         stats = QueryStats()
         kprime = max(k, int(round(rerank_multiplier * k)))
-        neighbors, codes, versions, live, vectors = self.pv.materialize(self.ctx)
-        q = self._t(queries)
+        rec = spans.ACTIVE
+        sp = rec.begin("index.search", queries=B) if rec else -1
+        try:
+            neighbors, codes, versions, live, vectors = self.pv.materialize(self.ctx)
+            q = self._t(queries)
 
-        if not self._graph_built:
-            stats.plan = "brute_force"
-            ids, dists = fmod.brute_force(q, vectors, live, k=k, metric=self.cfg.metric)
-            stats.full_reads = self.num_live
-            self._touch_tier(np.nonzero(self.pv.live)[0], stats, B, admit=False)
-            return (self._to_doc_ids(ids.cpu().numpy())[:B], dists.cpu().numpy()[:B], stats)
+            if not self._graph_built:
+                stats.plan = "brute_force"
+                ids, dists = fmod.brute_force(q, vectors, live, k=k, metric=self.cfg.metric)
+                stats.full_reads = self.num_live
+                self._touch_tier(np.nonzero(self.pv.live)[0], stats, B, admit=False)
+                if rec:
+                    rec.syncs += 2  # the answers read back
+                return (self._to_doc_ids(ids.cpu().numpy())[:B], dists.cpu().numpy()[:B],
+                        stats)
 
-        luts = self._luts(q)
-        res = smod.bucketed_batch_greedy_search(
-            neighbors, codes, versions, live, luts, self.medoid,
-            L=max(L, kprime), batch_buckets=batch_buckets, beam_width=W)
-        cand = res.beam_ids[:, :kprime]
-        pinned = self._touch_tier(cand[:B], stats, B, pin=True)
-        ids, dists = fmod.rerank(q, cand, vectors, k=k, metric=self.cfg.metric)
-        self._unpin_tier(pinned)
-        stats.hops = float(res.n_hops[:B].float().mean())
-        stats.cmps = float(res.n_cmps[:B].float().mean())
-        stats.expansions = float(res.n_exp[:B].float().mean())
-        stats.full_reads = float(kprime)
-        return self._to_doc_ids(ids.cpu().numpy())[:B], dists.cpu().numpy()[:B], stats
+            c = rec.begin("search.luts") if rec else -1
+            luts = self._luts(q)
+            if rec:
+                rec.end(c)
+            res = smod.bucketed_batch_greedy_search(
+                neighbors, codes, versions, live, luts, self.medoid,
+                L=max(L, kprime), batch_buckets=batch_buckets, beam_width=W)
+            cand = res.beam_ids[:, :kprime]
+            c = rec.begin("search.rerank") if rec else -1
+            pinned = self._touch_tier(cand[:B], stats, B, pin=True)
+            ids, dists = fmod.rerank(q, cand, vectors, k=k, metric=self.cfg.metric)
+            self._unpin_tier(pinned)
+            if rec:
+                rec.end(c)
+                c = rec.begin("search.answer")
+                rec.syncs += 5  # the three stats and the two answers read back
+            stats.hops = float(res.n_hops[:B].float().mean())
+            stats.cmps = float(res.n_cmps[:B].float().mean())
+            stats.expansions = float(res.n_exp[:B].float().mean())
+            stats.full_reads = float(kprime)
+            out = self._to_doc_ids(ids.cpu().numpy())[:B], dists.cpu().numpy()[:B], stats
+            if rec:
+                rec.end(c)
+            return out
+        finally:
+            if rec:
+                rec.end(sp, syncs=rec.syncs_since(sp))
 
     def _to_doc_ids(self, slots: np.ndarray) -> np.ndarray:
         return np.where(slots >= 0, self.slot_to_doc[np.maximum(slots, 0)], -1)

@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import spans
 from ..kernels.pq_adc.ops import pq_adc
 from ..kernels.topk_select.ops import topk_select
 from . import graph as g
@@ -173,11 +174,18 @@ def batch_greedy_search(
     cmps = torch.ones((B,), dtype=torch.int32, device=dev)
     rows = torch.arange(B, device=dev)[:, None]
     fixed_rounds = _is_fake(luts)
+    rec = spans.ACTIVE
+    sp = rec.begin("search.beam", queries=B) if rec else -1
 
     for rnd in range(max_hops + 1):
         active = ((~expanded) & (ids >= 0)).any(1) & (hops < max_hops)
-        if rnd == max_hops or (not fixed_rounds and not bool(active.any())):
+        if rnd == max_hops:
             break
+        if not fixed_rounds:
+            if rec:
+                rec.syncs += 1
+            if not bool(active.any()):
+                break
         p_pos, p_valid = frontier_topw(ids, dists, expanded, W)
         p_valid &= active[:, None]  # a frozen lane expands nothing
         p_ids = ids.gather(1, p_pos)
@@ -214,6 +222,8 @@ def batch_greedy_search(
         exp = exp + nv.sum(1, dtype=torch.int32)
         cmps = cmps + n_new
 
+    if rec:
+        rec.end(sp, rounds=rnd, syncs=rec.syncs_since(sp))
     return SearchResult(
         beam_ids=ids, beam_dists=dists,
         visited_ids=visited_ids[:, :visited_cap].contiguous(),

@@ -39,6 +39,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import spans
 from ..core import flat as fmod
 from ..core import paginate as pgmod
 from ..core import pq as pqmod
@@ -780,74 +781,83 @@ class SpmdFanout:
         queries = np.asarray(queries, np.float32)
         B, k = len(queries), int(k)
         n = len(parts)
-        failed: list[tuple[int, str]] = []
-        down = set()
-        for i, p in enumerate(parts):
-            if health is not None and not health(p):
-                down.add(i)
-                failed.append((int(p.pid), "replica set down"))
-        prog_idx = [i for i, p in enumerate(parts)
-                    if i not in down
-                    and p.index._graph_built and p.num_docs > 0]
-        in_prog = set(prog_idx)
+        rec = spans.ACTIVE
+        sp = rec.begin("fanout.search", queries=B, partitions=n) if rec else -1
+        try:
+            failed: list[tuple[int, str]] = []
+            down = set()
+            for i, p in enumerate(parts):
+                if health is not None and not health(p):
+                    down.add(i)
+                    failed.append((int(p.pid), "replica set down"))
+            prog_idx = [i for i, p in enumerate(parts)
+                        if i not in down
+                        and p.index._graph_built and p.num_docs > 0]
+            in_prog = set(prog_idx)
 
-        ids_by: list = [None] * n
-        d_by: list = [None] * n
-        rus: list = [0.0] * n
-        stats_by: list = [None] * n
-        lat_by: list = [0.0] * n
+            ids_by: list = [None] * n
+            d_by: list = [None] * n
+            rus: list = [0.0] * n
+            stats_by: list = [None] * n
+            lat_by: list = [0.0] * n
 
-        # host fallback — identical to the serial loop's search_batch call
-        W = int(beam_width) if beam_width is not None else None
-        for i, p in enumerate(parts):
-            if i in in_prog or i in down:
-                continue
-            kw: dict = dict(pad_to_bucket=True, batch_buckets=batch_buckets)
-            if W is not None:
-                kw["beam_width"] = W
-            try:
-                ids, dists, ru, stats = p.search_batch(queries, k, L, **kw)
-            except CrashError:
-                raise  # an injected process kill is not a partition fault
-            except Exception as e:  # noqa: BLE001 — degrade, don't collapse
-                down.add(i)
-                failed.append((int(p.pid), f"{type(e).__name__}: {e}"))
-                continue
-            ids_by[i], d_by[i], rus[i], stats_by[i] = ids, dists, ru, stats
-            lat_by[i] = p.providers.meter.latency_ms(
-                counters_for_latency(stats))
+            # host fallback — identical to the serial loop's search_batch call
+            W = int(beam_width) if beam_width is not None else None
+            for i, p in enumerate(parts):
+                if i in in_prog or i in down:
+                    continue
+                kw: dict = dict(pad_to_bucket=True, batch_buckets=batch_buckets)
+                if W is not None:
+                    kw["beam_width"] = W
+                try:
+                    ids, dists, ru, stats = p.search_batch(queries, k, L, **kw)
+                except CrashError:
+                    raise  # an injected process kill is not a partition fault
+                except Exception as e:  # noqa: BLE001 — degrade, don't collapse
+                    down.add(i)
+                    failed.append((int(p.pid), f"{type(e).__name__}: {e}"))
+                    continue
+                ids_by[i], d_by[i], rus[i], stats_by[i] = ids, dists, ru, stats
+                lat_by[i] = p.providers.meter.latency_ms(
+                    counters_for_latency(stats))
 
-        if prog_idx:
-            out = self._search_stacked([parts[i] for i in prog_idx], queries, k, L,
-                                       batch_buckets, W, rerank_multiplier)
-            for i, (ids, dists, ru, stats, lat) in zip(prog_idx, out):
-                ids_by[i], d_by[i], rus[i], stats_by[i], lat_by[i] = ids, dists, ru, stats, lat
+            if prog_idx:
+                out = self._search_stacked([parts[i] for i in prog_idx], queries, k, L,
+                                           batch_buckets, W, rerank_multiplier)
+                for i, (ids, dists, ru, stats, lat) in zip(prog_idx, out):
+                    ids_by[i], d_by[i], rus[i], stats_by[i], lat_by[i] = ids, dists, ru, stats, lat
 
-        ok = [i for i in range(n) if ids_by[i] is not None]
-        if failed and not ok:
-            raise AllPartitionsFailed(
-                f"all {n} partitions failed: {failed}"
+            c = rec.begin("fanout.merge") if rec else -1
+            ok = [i for i in range(n) if ids_by[i] is not None]
+            if failed and not ok:
+                raise AllPartitionsFailed(
+                    f"all {n} partitions failed: {failed}"
+                )
+            if ok:
+                ids, dists = merge_topk([ids_by[i] for i in ok],
+                                        [d_by[i] for i in ok], k)
+            else:
+                ids = np.full((B, k), -1, np.int64)
+                dists = np.full((B, k), np.inf, np.float32)
+            info = dict(
+                partition_ids=[int(p.pid) for p in parts],
+                ru_per_partition=[rus[i] for i in ok],
+                ru_total=float(np.sum([rus[i] for i in ok])) if ok else 0.0,
+                stats_per_partition=[stats_by[i] for i in ok],
+                server_latencies_ms=[lat_by[i] for i in ok],
+                service_latency_ms=(float(np.max([lat_by[i] for i in ok]))
+                                    if ok else 0.0),
+                spmd=dict(partitions_in_program=len(prog_idx),
+                          mesh_devices=self.n_devices),
+                failed_partitions=failed,
+                complete=not failed,
             )
-        if ok:
-            ids, dists = merge_topk([ids_by[i] for i in ok],
-                                    [d_by[i] for i in ok], k)
-        else:
-            ids = np.full((B, k), -1, np.int64)
-            dists = np.full((B, k), np.inf, np.float32)
-        info = dict(
-            partition_ids=[int(p.pid) for p in parts],
-            ru_per_partition=[rus[i] for i in ok],
-            ru_total=float(np.sum([rus[i] for i in ok])) if ok else 0.0,
-            stats_per_partition=[stats_by[i] for i in ok],
-            server_latencies_ms=[lat_by[i] for i in ok],
-            service_latency_ms=(float(np.max([lat_by[i] for i in ok]))
-                                if ok else 0.0),
-            spmd=dict(partitions_in_program=len(prog_idx),
-                      mesh_devices=self.n_devices),
-            failed_partitions=failed,
-            complete=not failed,
-        )
-        return ids, dists, info
+            if rec:
+                rec.end(c)
+            return ids, dists, info
+        finally:
+            if rec:
+                rec.end(sp, syncs=rec.syncs_since(sp))
 
     def _search_stacked(self, prog_parts, queries, k, L, batch_buckets, W,
                         rerank_multiplier) -> list[tuple]:
@@ -867,6 +877,8 @@ class SpmdFanout:
         block = (list(prog_parts) + [prog_parts[0]] * (per * R - P))[
             self._rank * per:(self._rank + 1) * per]
 
+        rec = spans.ACTIVE
+        sp = rec.begin("fanout.stack") if rec else -1
         # per-partition LUTs from the SAME calls the serial path makes
         # (identical inputs → identical tables, bit for bit); the V axis
         # pads to the widest schema set by repeating the last table —
@@ -878,6 +890,8 @@ class SpmdFanout:
                 [lt, lt[:, -1:].expand(-1, V_max - lt.shape[1], -1, -1)], 1)
             for lt in luts]).contiguous()
         arrs = self._stacked(block)
+        if rec:
+            rec.end(sp)
         _SPMD_SIGNATURES.add((R, P, bucket, V_max, arrs["neighbors"].shape[0], L_eff, k,
                               kprime, int(W_eff), idx0.cfg.metric))
         with smod.uncounted():
@@ -885,6 +899,7 @@ class SpmdFanout:
                 arrs["neighbors"], arrs["codes"], arrs["versions"], arrs["live"], luts,
                 arrs["medoid"].repeat_interleave(bucket), L=L_eff, beam_width=int(W_eff))
             cand = res.beam_ids[:, :kprime]
+            sp = rec.begin("fanout.rerank") if rec else -1
             q = torch.from_numpy(padded).to(self.device).repeat(len(block), 1)
             ids, dists = fmod.rerank(q, cand, arrs["vectors"], k=k, metric=idx0.cfg.metric)
 
@@ -906,6 +921,10 @@ class SpmdFanout:
             for j in range(per)]).cpu().numpy()
         if R > 1:
             ints, dists, means = self._gather(ints), self._gather(dists), self._gather(means)
+        if rec:
+            rec.syncs += 4  # the answers, the beams, their dists and the stats read back
+            rec.end(sp)
+            sp = rec.begin("fanout.meter")
 
         out = []
         for j, p in enumerate(prog_parts):
@@ -934,6 +953,8 @@ class SpmdFanout:
             p.governor.request(ru)
             out.append((ints[j, :, :k], dists[j], ru, st,
                         pv.meter.latency_ms(counters_for_latency(st))))
+        if rec:
+            rec.end(sp)
         return out
 
     def _gather(self, a: np.ndarray) -> np.ndarray:

@@ -11,6 +11,8 @@ The port's own copy of ``repro.serve.metrics`` (numpy only, but importing
 it through ``repro`` loads JAX). In the port the recompile telemetry counts
 launch signatures (``core.search.jit_cache_size``): the port has no JIT
 cache, so a signature first seen is what a compile was to the reference.
+Host-clock time is not kept here: ``repro_torch.spans`` records it, as spans
+of the engine, the fan-out, the search and the insert path.
 """
 from __future__ import annotations
 
@@ -44,8 +46,8 @@ class Histogram:
     geometric bins (ratio ``GROWTH`` per bin starting at ``LO``), so the
     percentile readout — the geometric midpoint of the target bin,
     clamped to the exact observed [min, max] — carries ≤ √GROWTH−1
-    (≈3.4%) relative error while ``count``/``sum``/``mean``/``min``/
-    ``max`` stay exact. Percentiles are monotone in p by construction
+    (≈3.4%) relative error while ``count``/``sum``/``mean``/``max`` stay
+    exact. Percentiles are monotone in p by construction
     (cumulative scan over ordered bins). Parity against the retained
     ``ExactHistogram`` is tested on seeded workloads.
     """
@@ -86,10 +88,6 @@ class Histogram:
     @property
     def sum(self) -> float:
         return self._sum
-
-    @property
-    def min(self) -> float:
-        return self._min if self._count else 0.0
 
     @property
     def max(self) -> float:

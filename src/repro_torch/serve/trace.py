@@ -56,7 +56,9 @@ Stage taxonomy (``STAGES``):
 
 The port's own copy of ``repro.serve.trace`` (no JAX there, but importing
 it through ``repro`` loads JAX); the records and their schema are the
-reference's.
+reference's. ``Span`` lives in ``repro_torch.spans``, whose ``Recorder``
+records the same type on the host clock: the time the port's layers take,
+where these traces model it.
 """
 from __future__ import annotations
 
@@ -65,6 +67,7 @@ import json
 from collections import deque
 from typing import Any, Optional
 
+from ..spans import Span
 from .metrics import SimClock
 
 STAGES = ("admission", "queue", "batch_form", "lane", "partition", "hedge",
@@ -79,22 +82,6 @@ ANOMALY_FAULT = "fault_retry"
 ANOMALY_SLO = "slo_violation"
 ANOMALY_DEADLINE = "deadline_exceeded"
 ANOMALY_DEGRADED = "degraded"
-
-
-@dataclasses.dataclass
-class Span:
-    """One lifecycle stage of one request, on SimClock time."""
-
-    name: str
-    stage: str
-    t0_s: float
-    t1_s: float
-    parent: int = -1  # index into the owning trace's span list
-    attrs: dict = dataclasses.field(default_factory=dict)
-
-    @property
-    def dur_ms(self) -> float:
-        return (self.t1_s - self.t0_s) * 1000.0
 
 
 @dataclasses.dataclass
@@ -119,20 +106,6 @@ class Trace:
         self.spans.append(Span(name, stage, float(t0_s), float(t1_s),
                                parent, attrs))
         return len(self.spans) - 1
-
-    def stage_totals(self) -> dict:
-        """Root-span duration per stage (ms). Root spans are sequential —
-        they tile [t0, t1] — so their sum reconciles with latency_ms;
-        children (partition fan-out, hedge) model parallel structure and
-        are excluded."""
-        out: dict[str, float] = {}
-        for s in self.spans:
-            if s.parent == -1:
-                out[s.stage] = out.get(s.stage, 0.0) + s.dur_ms
-        return out
-
-    def has_stage(self, stage: str) -> bool:
-        return any(s.stage == stage for s in self.spans)
 
     def to_record(self) -> dict:
         """The JSON-lines export shape (see ``validate_trace_record``)."""

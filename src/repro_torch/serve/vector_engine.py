@@ -54,8 +54,12 @@ The port of ``repro.serve.vector_engine``, line for line but in three places:
     have run. The count moves where the reference's does: flat in steady
     state, up by one for each new (bucket, L, W, ...) signature.
 
-Every time the engine reports is modelled on its ``SimClock`` (the §4.4
-access-time model), never measured on the card.
+Every time the engine reports -- its metrics, its traces, each response's
+``latency_ms`` -- is modelled on its ``SimClock`` (the §4.4 access-time
+model). Measured time is recorded apart, on the host clock, by
+``repro_torch.spans`` while a recording is on: each query's ``engine.queue``
+span from its submission to the dispatch that takes it, each micro-batch's
+``engine.batch``, and the fan-out, search and insert spans inside them.
 """
 from __future__ import annotations
 
@@ -66,6 +70,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch.distributed as dist
 
+from .. import spans
 from ..core import flat as fmod
 from ..core import search as smod
 from ..partition.fanout import (AllPartitionsFailed, SpmdFanout,
@@ -176,6 +181,9 @@ class ServeRequest:
     # completion (its answer may arrive "late" but is still a 200).
     deadline_ms: Optional[float] = None
     deadline_s: float = np.inf  # absolute expiry, stamped at submit()
+    # (recorder, index) of its host-clock ``engine.queue`` span while it
+    # waits, when ``spans.recording()`` is on
+    queue_span: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -345,6 +353,9 @@ class VectorServeEngine:
         if dl is not None:
             req.deadline_s = req.arrival_s + dl / 1000.0
         self.queue.append(req)
+        rec = spans.ACTIVE
+        if rec:
+            req.queue_span = (rec, rec.start("engine.queue", rid=req.rid))
         return None
 
     def submit_query(self, vector: np.ndarray, k: int = 10,
@@ -448,6 +459,11 @@ class VectorServeEngine:
     # dispatch
     # ------------------------------------------------------------------
     def _dispatch(self, key: tuple, batch: list[ServeRequest]):
+        if spans.ACTIVE:
+            for r in batch:
+                if r.queue_span is not None:
+                    r.queue_span[0].end(r.queue_span[1])
+                    r.queue_span = None
         in_batch = set(id(r) for r in batch)
         self.queue = [r for r in self.queue if id(r) not in in_batch]
         # deadline sweep: a request whose budget expired while it queued is
@@ -466,7 +482,9 @@ class VectorServeEngine:
         # compile stall — the tail-latency failure mode bucketing removes)
         top = max(self.cfg.batch_buckets)
         chunks = [batch[lo : lo + top] for lo in range(0, len(batch), top)]
+        rec = spans.ACTIVE
         for i, chunk in enumerate(chunks):
+            sp = rec.begin("engine.batch", queries=len(chunk)) if rec else -1
             try:
                 self._dispatch_chunk(key, chunk)
             except Exception:
@@ -476,6 +494,9 @@ class VectorServeEngine:
                 for r in (q for c in chunks[i + 1 :] for q in c):
                     self.tenant_governor(r.tenant).refund(r.reserved_ru)
                 raise
+            finally:
+                if rec:
+                    rec.end(sp)
 
     def _partition_health(self, p) -> bool:
         """False when the partition's entire replica set is down (degrade:
